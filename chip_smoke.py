@@ -1,0 +1,634 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one
+NVIDIA H100.
+
+    python3 chip_smoke.py            # from the repository root
+    python3 chip_smoke.py --profile  # + one profiled decode step per engine
+
+Phases, each of which must pass:
+
+1. Build: compile every CUDA kernel of the port from ``csrc/`` (one
+   nvcc per source, all at once) and print the build time and ptxas
+   resource lines.
+2. Kernels against their plain PyTorch versions on the card: K1
+   ``paged_attention`` over float32 / bf16 / int8 pages, GQA groups
+   g in {1, 2, 4, 8}, full / window / chunk / logit-cap / v_dim
+   variants, mixed lengths with a length-0 row, and the combined
+   (B, M+1) operand against separate operands (bitwise), then at the
+   served shapes; K2 ``mux_score`` at the served shape and the
+   reference sweep shapes.  TF32 is switched off for the plain
+   versions (``torch.backends.cuda.matmul.allow_tf32 = False``,
+   ``torch.backends.cudnn.allow_tf32 = False``), so they run in full
+   fp32.  Tolerances: 2e-2 with bf16 operands or outputs, 1e-4 for
+   fp32 paged attention, 1e-5 for the fp32 mux head.  Each kernel is
+   timed at the served shape (CUDA events; K/V copies rotated so the
+   50 MB L2 never holds the next call's pages) beside its plain
+   version and its bound.  A tiny model's teacher-forced decode
+   through the kernel is held against the same model on the CPU.
+3. The served path at full width: olmo-1b and codeqwen1.5-7b at their
+   published configs (depth uncut) with random bf16 weights from a
+   seeded ``torch.Generator``, bf16 page pools (page 64; 512 and 256
+   pages), ``max_len`` 2048, decode batch 8, behind a token-probe mux
+   (d_model 128, 2 layers, meta_dim 32, vocab 50304, cost = 2 x params)
+   whose threshold is set from the probe weights so both models get
+   traffic.  8 prompts of 128-1024 tokens (two share a 256-token
+   prefix) go through ``MuxServer.probe`` -> ``prefill_into_pages`` in
+   the selected engine -> ``decode_step_batch`` until each has 32
+   tokens.  Checks: every logit sampled is finite, each pool drains to
+   zero pages, ``paged_attention`` launched num_layers x decode steps
+   times on each engine, ``mux_score`` at least once.
+
+Output: progress lines, then the ``{"kernels": [...]}`` JSON line, a
+JSON line of per-request prefill ms and per-engine decode tokens/s,
+the card's name and power limit (nvidia-smi), and as the last line
+``{"ok": true, "device": {...}}``.  Any failed check raises: the run
+exits non-zero without that last line.  It needs one CUDA card and a
+checkout of the repository (it imports ``src/repro_torch``).
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+SRC = Path(__file__).resolve().parent / "src"
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
+BF16_FLOPS = 989e12              # dense bf16 tensor-core peak
+FP32_FLOPS = 67e12               # fp32 outside the tensor cores
+SEED = 0
+BF16_TOL = 2e-2
+F32_PAGED_TOL = 1e-4
+F32_MUX_TOL = 1e-5
+MODEL_TOL = 1e-3                 # fp32 logits, card vs CPU
+
+
+class CheckFailed(AssertionError):
+    pass
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise CheckFailed(msg)
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def time_cuda(fn, iters: int, warmup: int = 3) -> float:
+    """Mean ms per call of ``fn(i)`` over ``iters`` calls (CUDA events)."""
+    import torch
+    for i in range(warmup):
+        fn(i)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(iters):
+        fn(i)
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+# ---------------------------------------------------------------------------
+# phase 2: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def paged_inputs(gen, dev, *, lengths, h, kk, hd, ps, m, page_dtype,
+                 q_dtype, vd=None, share_kv=False):
+    """Random q and page pool drawn on the CPU from ``gen``; row i maps
+    its own shuffled pages.  int8 pools quantise per (slot, head) as the
+    model's pool does."""
+    import torch
+    from repro_torch.models.attention import _quantize
+    vd = vd or hd
+    need = [max(1, -(-int(n) // ps)) for n in lengths]
+    pages = 1 + sum(need)
+    perm = torch.randperm(pages - 1, generator=gen) + 1
+    bt = torch.zeros((len(lengths), m), dtype=torch.int32)
+    off = 0
+    for i, n in enumerate(need):
+        bt[i, :n] = perm[off:off + n].to(torch.int32)
+        off += n
+    q = torch.randn((len(lengths), h, hd), generator=gen).to(q_dtype)
+    kf = torch.randn((pages, ps, kk, hd), generator=gen)
+    vf = kf if share_kv else torch.randn((pages, ps, kk, vd), generator=gen)
+    inp = {"q": q, "bt": bt,
+           "lengths": torch.as_tensor(lengths, dtype=torch.int32)}
+    if page_dtype == torch.int8:
+        inp["k"], inp["k_scales"] = _quantize(kf)
+        inp["v"], inp["v_scales"] = ((inp["k"], inp["k_scales"]) if share_kv
+                                     else _quantize(vf))
+    else:
+        inp["k"] = kf.to(page_dtype)
+        inp["v"] = inp["k"] if share_kv else vf.to(page_dtype)
+    return {k: v.to(dev) for k, v in inp.items()}
+
+
+def paged_call(inp, kw):
+    args = (inp["q"], inp["k"], inp["v"], inp["bt"], inp["lengths"])
+    kw = dict(kw)
+    if "k_scales" in inp:
+        kw.update(k_scales=inp["k_scales"], v_scales=inp["v_scales"])
+    return args, kw
+
+
+def check_paged_attention(dev) -> float:
+    """K1 over page dtypes x GQA groups x variants; returns the max
+    error over every case."""
+    import torch
+    from repro_torch.kernels.paged_attention import (decode_prefetch,
+                                                     paged_attention_cuda,
+                                                     paged_attention_plain)
+    gen = torch.Generator().manual_seed(SEED)
+    h, hd, ps, m = 16, 128, 16, 16
+    lengths = [0, 1, 77, 200, 256]
+    variants = {"full": {}, "window": {"window": 50}, "chunk": {"chunk": 48},
+                "logit_cap": {"logit_cap": 30.0}, "v_dim": {"v_dim": 64}}
+    dtypes = {"float32": (torch.float32, torch.float32),
+              "bf16": (torch.bfloat16, torch.bfloat16),
+              "int8": (torch.int8, torch.bfloat16)}
+    worst = 0.0
+    for dname, (page_dtype, q_dtype) in dtypes.items():
+        tol = F32_PAGED_TOL if dname == "float32" else BF16_TOL
+        for g in (1, 2, 4, 8):
+            for vname, kw in variants.items():
+                inp = paged_inputs(gen, dev, lengths=lengths, h=h, kk=h // g,
+                                   hd=hd, ps=ps, m=m, page_dtype=page_dtype,
+                                   q_dtype=q_dtype,
+                                   share_kv=vname == "v_dim")
+                args, kwargs = paged_call(inp, kw)
+                sep = paged_attention_cuda(*args, **kwargs)
+                pf = decode_prefetch(inp["bt"], inp["lengths"])
+                comb = paged_attention_cuda(*args, prefetch=pf, **kwargs)
+                torch.cuda.synchronize()
+                plain = paged_attention_plain(*args, **kwargs)
+                err = (sep.float() - plain.float()).abs().max().item()
+                same = torch.equal(sep, comb)
+                zero = bool((sep[0] == 0).all())
+                log(f"K1 {dname:7s} g={g} {vname:9s} max_err={err:.3e} "
+                    f"tol={tol:g} combined==separate={same} "
+                    f"len0_zero={zero}")
+                check(err <= tol, f"K1 {dname} g={g} {vname}: max_err "
+                      f"{err:.3e} > {tol:g}")
+                check(same, f"K1 {dname} g={g} {vname}: the combined "
+                      f"operand gives another result than separate ones")
+                check(zero, f"K1 {dname} g={g} {vname}: a length-0 row is "
+                      f"not exact zeros")
+                worst = max(worst, err)
+    return worst
+
+
+def served_paged_shape(dev, *, h: int, copies: int = 1):
+    """Decode batch 8, ``h`` heads of 128, page 64, mixed lengths up to
+    1024, bf16 pages (the olmo-1b / codeqwen1.5-7b decode step)."""
+    import torch
+    gen = torch.Generator().manual_seed(SEED + h)
+    lengths = [1024, 911, 777, 600, 433, 256, 129, 17]
+    return [paged_inputs(gen, dev, lengths=lengths, h=h, kk=h, hd=128, ps=64,
+                         m=32, page_dtype=torch.bfloat16,
+                         q_dtype=torch.bfloat16) for _ in range(copies)]
+
+
+def paged_bound_ms(inp) -> tuple:
+    """(bound ms, bound_by) of one K1 call on these inputs, which have
+    no window or chunk, so each row's query sees its whole length and
+    the kernel reads exactly those tokens.  Bytes: the visible tokens'
+    K/V (and int8 scales) once per (row, kv head), the page ids of the
+    pages holding them and each row's length, q and out, over HBM
+    bandwidth.  Operations: 2*(hd+vd) FLOPs per (query head, visible
+    token) over the bf16 rate."""
+    import torch
+    q, k, v = inp["q"], inp["k"], inp["v"]
+    b, h, hd = q.shape
+    ps, kk = k.shape[1], k.shape[2]
+    vd = v.shape[-1]
+    per_token = kk * (hd * k.element_size() + vd * v.element_size())
+    if k.dtype == torch.int8:
+        per_token += kk * 2 * 2          # two bf16 scales per kv head
+    lengths = inp["lengths"].tolist()
+    tokens = sum(lengths)
+    pages = sum(-(-n // ps) for n in lengths)
+    byts = (tokens * per_token + 4 * (pages + b)
+            + (q.numel() + b * h * vd) * q.element_size())
+    flops = 2 * h * (hd + vd) * tokens
+    t_bytes = byts / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def time_paged_attention(dev) -> dict:
+    """K1 at the served olmo-1b shape; codeqwen's shape checked too."""
+    import torch
+    from repro_torch.kernels.paged_attention import (decode_prefetch,
+                                                     paged_attention_cuda,
+                                                     paged_attention_plain)
+    worst = 0.0
+    for h in (16, 32):
+        inp = served_paged_shape(dev, h=h)[0]
+        args, kw = paged_call(inp, {})
+        out = paged_attention_cuda(*args,
+                                   prefetch=decode_prefetch(inp["bt"],
+                                                            inp["lengths"]))
+        err = (out.float() - paged_attention_plain(*args).float()
+               ).abs().max().item()
+        log(f"K1 served shape B=8 H={h} hd=128 page=64 max_err={err:.3e} "
+            f"tol={BF16_TOL:g}")
+        check(err <= BF16_TOL, f"K1 served shape H={h}: max_err {err:.3e}")
+        worst = max(worst, err)
+    # time at olmo's shape; rotate through copies whose pages together
+    # exceed the L2 so every call reads its K/V from device memory
+    one = served_paged_shape(dev, h=16)[0]
+    pool_bytes = 2 * one["k"].numel() * one["k"].element_size()
+    copies = served_paged_shape(dev, h=16,
+                                copies=max(2, -(-160_000_000 // pool_bytes)))
+    pfs = [decode_prefetch(c["bt"], c["lengths"]) for c in copies]
+    n = len(copies)
+    ms = time_cuda(lambda i: paged_attention_cuda(
+        copies[i % n]["q"], copies[i % n]["k"], copies[i % n]["v"],
+        copies[i % n]["bt"], copies[i % n]["lengths"], prefetch=pfs[i % n]),
+        iters=200)
+    plain_ms = time_cuda(lambda i: paged_attention_plain(
+        *paged_call(copies[i % n], {})[0]), iters=20)
+    bound, bound_by = paged_bound_ms(one)
+    log(f"K1 time at B=8 H=16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bound {bound:.4f} ms ({bound_by}), {n} rotated copies")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": bound_by, "served_err": worst}
+
+
+def check_mux_score(dev) -> dict:
+    """K2 at the sweep shapes and the served shape (B=1, M=32, N=2,
+    normalize=False); timed at the served shape."""
+    import torch
+    from repro_torch.kernels.mux_score import mux_score_cuda
+    from repro_torch.kernels.ref import mux_score_ref
+    gen = torch.Generator().manual_seed(SEED)
+    worst = 0.0
+    cases = [(10, 64, 6, True), (300, 32, 2, True), (7, 128, 16, True),
+             (1, 32, 2, False)]
+    for b, m, n, norm in cases:
+        meta = torch.randn((b, m), generator=gen).to(dev)
+        v = torch.randn((n, m), generator=gen).to(dev)
+        cost = torch.arange(1.0, n + 1).to(dev)
+        got = mux_score_cuda(meta, v, cost, normalize=norm)
+        torch.cuda.synchronize()
+        err = (got - mux_score_ref(meta, v, cost, normalize=norm)
+               ).abs().max().item()
+        log(f"K2 B={b} M={m} N={n} normalize={norm} max_err={err:.3e} "
+            f"tol={F32_MUX_TOL:g}")
+        check(err <= F32_MUX_TOL, f"K2 {(b, m, n, norm)}: max_err {err:.3e}")
+        worst = max(worst, err)
+    ms = time_cuda(lambda i: mux_score_cuda(meta, v, cost, normalize=False),
+                   iters=1000)
+    plain_ms = time_cuda(lambda i: mux_score_ref(meta, v, cost,
+                                                 normalize=False), iters=1000)
+    byts = 4 * (meta.numel() + v.numel() + cost.numel() + b * n)
+    flops = 2 * b * n * m + 4 * b * n
+    t_bytes = byts / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS * 1e3
+    log(f"K2 time at B=1 M=32 N=2: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+        f"ms")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "max_abs_err": worst}
+
+
+def check_model_against_cpu(dev) -> float:
+    """A tiny fp32 model: prefill + teacher-forced paged decode through
+    the CUDA kernel on the card, against the same weights on the CPU
+    (plain path).  Returns the max logit difference."""
+    import torch
+    from repro_torch.configs.base import LayerSpec, ModelConfig
+    from repro_torch.models import transformer as tf
+    cfg = ModelConfig(name="tiny-check", arch_type="dense", num_layers=2,
+                      d_model=64, d_ff=128, vocab_size=128, num_heads=4,
+                      num_kv_heads=2, head_dim=16, compute_dtype="float32",
+                      param_dtype="float32", kv_cache_dtype="float32",
+                      pattern=(LayerSpec(), LayerSpec(attn_kind="swa")),
+                      window=6)
+    params = tf.init_params(cfg, torch.Generator().manual_seed(SEED),
+                            device="cpu")
+    gparams = _to_device(params, dev)
+    toks = torch.randint(0, cfg.vocab_size, (2, 20),
+                         generator=torch.Generator().manual_seed(SEED))
+    bt = torch.arange(1, 11, dtype=torch.int32).reshape(2, 5)
+    runs = {}
+    for p, d in ((params, torch.device("cpu")), (gparams, dev)):
+        caches = tf.init_caches(cfg, num_pages=11, page_size=4, device=d)
+        logits = [tf.prefill_paged(p, cfg, toks[:, :8].to(d), caches,
+                                   bt.to(d))[0]]
+        for i in range(8, 20):
+            pos = torch.tensor([i, i], device=d)
+            logits.append(tf.decode_step(p, cfg, toks[:, i:i + 1].to(d),
+                                         caches, pos,
+                                         block_tables=bt.to(d))[0])
+        runs[d.type] = torch.cat([x.float().cpu() for x in logits], 1)
+    worst = (runs["cpu"] - runs["cuda"]).abs().max().item()
+    log(f"tiny model on the card vs CPU: max logit diff {worst:.3e} "
+        f"tol={MODEL_TOL:g}")
+    check(worst <= MODEL_TOL, f"tiny model card vs CPU: {worst:.3e}")
+    return worst
+
+
+# ---------------------------------------------------------------------------
+# phase 3: the served path
+# ---------------------------------------------------------------------------
+
+def make_prompts(rng, vocab: int):
+    """8 prompts of 128-1024 tokens; prompts 4 and 5 share a 256-token
+    prefix (prefix sharing); most lengths are not page multiples, so
+    the admission after a probe prewarm maps a partly filled boundary
+    page and the first decode step copies it (copy-on-write)."""
+    lengths = [128, 1024, 333, 700, 459, 789, 512, 901]
+    prompts = [rng.integers(0, vocab, n).astype(np.int32) for n in lengths]
+    prompts[5][:256] = prompts[4][:256]
+    return prompts
+
+
+def serve(dev, cfgs, num_pages, *, new_tokens=32, max_len=2048,
+          decode_batch=8, vocab=50_304, dtype=None, on_logits=None,
+          profile_step=None):
+    """Build the zoo + mux on ``dev`` and serve 8 prompts; returns the
+    run's statistics.  ``on_logits`` sees every logits tensor an engine
+    samples from; ``profile_step`` (an index) runs that decode step of
+    each engine under ``torch.profiler``."""
+    import torch
+    from repro_torch.core.multiplexer import init_mux, init_token_backbone
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving.engine import Engine, ServeConfig
+    from repro_torch.serving.mux_server import MuxServer, MuxServerConfig
+
+    t0 = time.perf_counter()
+    engines, costs = [], []
+    for i, (cfg, pages) in enumerate(zip(cfgs, num_pages)):
+        gen = torch.Generator(device=dev).manual_seed(SEED + i)
+        params = tf.init_params(cfg, gen, device=dev, dtype=dtype)
+        n_params = sum(t.numel() for t in _leaves(params))
+        costs.append(2.0 * n_params)
+        eng = Engine(cfg, params, ServeConfig(max_len=max_len), device=dev)
+        eng.init_paged(num_pages=pages, page_size=64,
+                       decode_batch=decode_batch, logit_cache=8)
+        if on_logits is not None:
+            eng._sample_rows = _watch(eng._sample_rows, on_logits)
+        engines.append(eng)
+        log(f"{cfg.name}: {n_params / 1e9:.3f}B params, {pages} pages")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 100)
+    backbone = init_token_backbone(gen, meta_dim=32, vocab_size=vocab,
+                                   d_model=128, num_layers=2, device=dev)
+    names = [c.name for c in cfgs]
+    mux = init_mux(gen, backbone=backbone, model_names=names,
+                   costs=dict(zip(names, costs)), meta_dim=32, proj_dim=16,
+                   device=dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    prompts = make_prompts(np.random.default_rng(SEED), vocab)
+    probe = np.stack([p[:64] for p in prompts])
+    w = MuxServer(mux, costs, device=dev).probe_weights(probe)[:, 0]
+    w = w.cpu().numpy()
+    uniq = np.unique(w)
+    check(len(uniq) >= 2, "the probe gives every prompt the same weight")
+    k = len(uniq) // 2
+    threshold = float((uniq[k - 1] + uniq[k]) / 2)
+    server = MuxServer(mux, costs, MuxServerConfig(threshold=threshold),
+                       engines=engines, device=dev)
+
+    ops.reset_launches()
+    seqs = [[] for _ in engines]
+    prefill_ms = []
+    for prompt in prompts:
+        t = time.perf_counter()
+        m = int(server.probe(prompt[None])["assign"][0])
+        seq = engines[m].prefill_into_pages(prompt, max_new_tokens=new_tokens)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        prefill_ms.append((time.perf_counter() - t) * 1e3)
+        seqs[m].append(seq)
+    per_engine = []
+    for eng, running in zip(engines, seqs):
+        before = ops.launches["paged_attention"]
+        t = time.perf_counter()
+        steps = 0
+        active = list(running)
+        prof, prof_s, prof_tokens = None, 0.0, 0
+        step_ms = []                      # unprofiled steps, host clock
+        while active:
+            tp = time.perf_counter()
+            if steps == profile_step:     # kept out of the decode rate
+                prof = profile_decode_step(eng, active)
+                prof_s, prof_tokens = time.perf_counter() - tp, len(active)
+            else:
+                eng.decode_step_batch(active)   # syncs: ids reach the host
+                step_ms.append((time.perf_counter() - tp) * 1e3)
+            steps += 1
+            active = [s for s in active if not s.done]
+        if prof is not None:
+            # the profiler slows the host; idle share is taken against
+            # the median unprofiled step of the same batch
+            prof["unprofiled_step_ms"] = float(np.median(step_ms))
+            prof["idle_share"] = 1.0 - (prof["device_busy_ms"]
+                                        / prof["unprofiled_step_ms"])
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        dt = time.perf_counter() - t - prof_s
+        tokens = sum(len(s.tokens) - 1 for s in running) - prof_tokens
+        padded = sum(eng.pool.pages_for(s.prompt_len) * eng.pool.page_size
+                     for s in running)
+        per_engine.append({
+            "model": eng.cfg.name, "requests": len(running),
+            "decode_steps": steps, "decode_tokens": tokens,
+            "decode_s": dt,
+            "decode_tokens_per_s": tokens / dt if dt > 0 else 0.0,
+            "paged_attention_launches":
+                ops.launches["paged_attention"] - before,
+            "cow": eng.cow_count,
+            "prompt_tokens_padded": padded,
+            "prefill_tokens_computed": eng.prefill_tokens_computed,
+            "logit_cache_hits": eng.logit_cache_hits, "profile": prof})
+        for s in running:
+            check(len(s.tokens) == new_tokens,
+                  f"{eng.cfg.name}: a request made {len(s.tokens)} tokens")
+            eng.pool.release(s)
+        eng.shed_prewarmed()
+        per_engine[-1]["pages_in_use_after"] = eng.pool.pages_in_use
+    launches = dict(ops.launches)
+    return {"setup_s": setup_s, "threshold": threshold,
+            "prefill_ms": prefill_ms, "engines": per_engine,
+            "launches": launches,
+            "split": {e["model"]: e["requests"] for e in per_engine}}
+
+
+def profile_decode_step(eng, active) -> dict:
+    """One decode step under torch.profiler: device time by kernel (the
+    key_averages rows of device events; a CPU op's row repeats its
+    kernels' time and is left out) and the profiled step's host-clock
+    time, which the profiler inflates (``serve`` sets the idle share
+    against an unprofiled step)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        eng.decode_step_batch(active)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    rows = []
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CPU and evt.device_time_total > 0:
+            rows.append((evt.device_time_total / 1e3, evt.count,
+                         evt.key[:80]))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    paged = sum(r[0] for r in rows if "paged_attention_kernel" in r[2])
+    return {"profiled_step_ms": wall_ms, "device_busy_ms": busy,
+            "paged_attention_ms": paged,
+            "top": [{"ms": ms, "calls": n, "name": k}
+                    for ms, n, k in rows[:8]]}
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def _to_device(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def _watch(sample_rows, on_logits):
+    def wrapped(logits, *args, **kw):
+        on_logits(logits)
+        return sample_rows(logits, *args, **kw)
+    return wrapped
+
+
+def check_served(stats, cfgs) -> None:
+    by_model = {e["model"]: e for e in stats["engines"]}
+    for cfg in cfgs:
+        e = by_model[cfg.name]
+        check(e["requests"] > 0, f"{cfg.name} received no request")
+        check(e["pages_in_use_after"] == 0,
+              f"{cfg.name}: {e['pages_in_use_after']} pages still held")
+        want = cfg.num_layers * e["decode_steps"]
+        check(e["paged_attention_launches"] == want,
+              f"{cfg.name}: paged_attention launched "
+              f"{e['paged_attention_launches']} times, expected "
+              f"{cfg.num_layers} layers x {e['decode_steps']} steps = {want}")
+    check(stats["launches"]["mux_score"] >= 1, "mux_score never launched")
+    check(any(e["cow"] > 0 for e in stats["engines"]),
+          "no copy-on-write ran")
+    check(any(e["prefill_tokens_computed"] < e["prompt_tokens_padded"]
+              for e in stats["engines"]), "no prefix sharing ran")
+
+
+# ---------------------------------------------------------------------------
+
+def main(argv) -> int:
+    import argparse
+    import torch
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--profile", action="store_true",
+                    help="also run decode step 2 of each engine under "
+                         "torch.profiler and print its breakdown")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    if not (SRC / "repro_torch").is_dir():
+        print("chip_smoke: run from a checkout of the repository "
+              "(src/repro_torch is missing)", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(SRC))
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+
+    # the plain versions are references: full fp32, no TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"device {torch.cuda.get_device_name(0)}")
+
+    t0 = time.perf_counter()
+    built = build.build_all()
+    log(f"build: {time.perf_counter() - t0:.2f} s wall for "
+        f"{sorted(built)} (parallel nvcc)")
+    for name, (secs, text) in built.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  {name} ({secs:.1f} s): {line.strip()}")
+
+    k1_err = check_paged_attention(dev)
+    k1 = time_paged_attention(dev)
+    k2 = check_mux_score(dev)
+    check_model_against_cpu(dev)
+
+    cfgs = [get_config("olmo-1b"), get_config("codeqwen1.5-7b")]
+    finite = {"bad": 0, "seen": 0}
+
+    def on_logits(x):
+        finite["seen"] += 1
+        finite["bad"] += int(not bool(torch.isfinite(x).all()))
+
+    stats = serve(dev, cfgs, [512, 256], dtype=torch.bfloat16,
+                  on_logits=on_logits,
+                  profile_step=2 if args.profile else None)
+    log(f"served: setup {stats['setup_s']:.1f} s, threshold "
+        f"{stats['threshold']:.6f}, mux split {stats['split']}")
+    for e in stats["engines"]:
+        log(f"  {json.dumps(e)}")
+    check(finite["seen"] > 0 and finite["bad"] == 0,
+          f"{finite['bad']} of {finite['seen']} logits tensors not finite")
+    check_served(stats, cfgs)
+
+    kernels = [
+        {"name": "paged_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/paged_attention.cu",
+         "replaces": "src/repro/kernels/paged_attention.py:289",
+         "launches": stats["launches"]["paged_attention"],
+         "max_abs_err": max(k1_err, k1["served_err"]), "ms": k1["ms"],
+         "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
+         "bound_by": k1["bound_by"], "library_ms": None},
+        {"name": "mux_score", "route": "cuda",
+         "source": "src/repro_torch/csrc/mux_score.cu",
+         "replaces": "src/repro/kernels/mux_score.py:47",
+         "launches": stats["launches"]["mux_score"],
+         "max_abs_err": k2["max_abs_err"], "ms": k2["ms"],
+         "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
+         "bound_by": k2["bound_by"], "library_ms": None},
+    ]
+    # plain_ms is the plain PyTorch version's time: no yardstick of speed
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({
+        "prefill_ms_per_request": stats["prefill_ms"],
+        "decode_tokens_per_s": {e["model"]: e["decode_tokens_per_s"]
+                                for e in stats["engines"]}}), flush=True)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -1,0 +1,110 @@
+"""The model multiplexer (§II.B): meta-features + cost-aware stacking
+head.
+
+    w_i(x) = softmax_i( sum_j v_ij m_j(x) / c_i )        (Eq. 5-6)
+
+Port of the token branch of ``repro.core.multiplexer``: a 2-layer
+transformer probe over the prompt prefix produces the meta-features.
+The image backbone comes with the CNN zoo.  Params are plain dicts of
+tensors with the JAX package's tree (``repro_torch.convert`` carries
+them across).
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models.layers import dense_init, truncated_normal
+
+Params = Dict[str, Any]
+
+
+def init_token_backbone(generator: Optional[torch.Generator] = None, *,
+                        meta_dim: int, vocab_size: int, d_model: int = 128,
+                        num_layers: int = 2,
+                        device: DeviceLike = None) -> Params:
+    """Tiny transformer probe over the prompt prefix (fp32 params)."""
+    dev = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+
+    def dense(i, o):
+        return dense_init(generator, i, o, device=dev)
+
+    p: Params = {"embed": truncated_normal(generator, (vocab_size, d_model),
+                                           scale=0.02, dtype=torch.float32,
+                                           device=dev),
+                 "layers": [], "out": dense(d_model, meta_dim)}
+    for _ in range(num_layers):
+        p["layers"].append({
+            "wqkv": dense(d_model, 3 * d_model),
+            "wo": dense(d_model, d_model),
+            "up": dense(d_model, 4 * d_model),
+            "down": dense(4 * d_model, d_model),
+        })
+    return p
+
+
+def _token_backbone_forward(p: Params, tokens, *, probe_len: int = 64,
+                            num_heads: int = 4) -> torch.Tensor:
+    """tokens (B, S) -> meta (B, meta_dim).  Mean-pooled 2-layer
+    causal encoder over the first ``probe_len`` tokens."""
+    probe = torch.as_tensor(tokens, device=p["embed"].device)[:, :probe_len]
+    h = p["embed"][probe.long()]
+    b, s, d = h.shape
+    nh = num_heads
+    hd = d // nh
+    pos = torch.arange(s, device=h.device)
+    mask = pos[None, :] <= pos[:, None]
+    for lp in p["layers"]:
+        qkv = (h @ lp["wqkv"]).reshape(b, s, 3, nh, hd)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        sc = torch.einsum("bshd,bthd->bhst", q, k) / math.sqrt(hd)
+        sc = torch.where(mask[None, None], sc, torch.full_like(sc, -1e30))
+        att = torch.einsum("bhst,bthd->bshd", torch.softmax(sc, -1), v)
+        h = h + att.reshape(b, s, d) @ lp["wo"]
+        h = h + F.gelu(h @ lp["up"], approximate="tanh") @ lp["down"]
+    pooled = h.mean(dim=1)
+    return torch.tanh(pooled @ p["out"])
+
+
+def backbone_forward(params: Params, x, **static) -> torch.Tensor:
+    if "net" in params:
+        raise NotImplementedError("the image backbone is not ported yet")
+    return _token_backbone_forward(params, x, **static)
+
+
+def init_mux(generator: Optional[torch.Generator] = None, *,
+             backbone: Params, model_names: Sequence[str],
+             costs: Dict[str, float], meta_dim: int, proj_dim: int,
+             device: DeviceLike = None) -> Params:
+    """costs: FLOPs per inference for each zoo model (the paper's c_i),
+    kept relative to the cheapest."""
+    dev = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    c = torch.tensor([costs[m] for m in model_names], dtype=torch.float32,
+                     device=dev)
+    return {
+        "backbone": backbone,
+        "v": truncated_normal(generator, (len(model_names), meta_dim),
+                              scale=1.0 / math.sqrt(meta_dim),
+                              dtype=torch.float32, device=dev),
+        "cost_rel": c / c.min(),                  # fixed, not trained
+        "distill": {m: dense_init(generator, meta_dim, proj_dim, device=dev)
+                    for m in model_names},
+    }
+
+
+def mux_forward(params: Params, x, *, cost_exponent: float = 1.0,
+                **backbone_static) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (weights (B, N) softmax-normalised, meta (B, M)).
+    logits_i = (v_i . m) / c_i^alpha, alpha = cost_exponent."""
+    meta = backbone_forward(params["backbone"], x, **backbone_static)
+    logits = meta @ params["v"].T                          # (B, N)
+    cost = params["cost_rel"] ** cost_exponent
+    return torch.softmax(logits / cost[None, :], dim=-1), meta

@@ -1,0 +1,62 @@
+"""Dispatch by the tensors' device: a CPU tensor gets the kernel's plain
+PyTorch version, a CUDA tensor gets the hand-written kernel — or an
+exception.  There is no switch and no fallback: a CUDA request that
+the kernel cannot serve raises instead of computing elsewhere.
+
+``launches`` counts, per kernel, the calls that launched it (the
+plain path does not count), so a run can show that its main path went
+through the kernels.  Counter reads and resets belong to the caller
+(``reset_launches``).
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+from repro_torch.kernels import ref
+from repro_torch.kernels.mux_score import mux_score_cuda
+from repro_torch.kernels.paged_attention import (paged_attention_cuda,
+                                                 paged_attention_plain)
+
+launches: Dict[str, int] = {"paged_attention": 0, "mux_score": 0}
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
+                    window: Optional[int] = None,
+                    chunk: Optional[int] = None,
+                    logit_cap: Optional[float] = None,
+                    scale: Optional[float] = None,
+                    k_scales=None, v_scales=None,
+                    v_dim: Optional[int] = None,
+                    prefetch=None):
+    """Paged decode attention.  q: (B, H, hd) one token per row;
+    k_pages/v_pages: (P, page_size, K, hd|vd); block_tables: (B, M);
+    lengths: (B,); int8 pages carry (P, page_size, K) bf16 scales.
+    ``prefetch`` is the combined (B, M+1) operand from
+    :func:`repro_torch.kernels.paged_attention.decode_prefetch`, built
+    once per decode step; the plain version reads block_tables/lengths
+    directly.  Returns (B, H, vd) in q.dtype; rows of length 0 are exact
+    zeros."""
+    kw = dict(window=window, chunk=chunk, logit_cap=logit_cap, scale=scale,
+              k_scales=k_scales, v_scales=v_scales, v_dim=v_dim)
+    if q.device.type == "cpu":
+        return paged_attention_plain(q, k_pages, v_pages, block_tables,
+                                     lengths, **kw)
+    out = paged_attention_cuda(q, k_pages, v_pages, block_tables, lengths,
+                               prefetch=prefetch, **kw)
+    launches["paged_attention"] += 1
+    return out
+
+
+def mux_score(meta, v, cost, *, normalize: bool = True):
+    """Fused router head: weights (B, N) fp32 from meta (B, M), v (N, M)
+    and cost (N,)."""
+    if meta.device.type == "cpu":
+        return ref.mux_score_ref(meta, v, cost, normalize=normalize)
+    out = mux_score_cuda(meta, v, cost, normalize=normalize)
+    launches["mux_score"] += 1
+    return out

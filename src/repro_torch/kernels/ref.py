@@ -1,0 +1,74 @@
+"""Plain PyTorch versions of the port's kernels — the arithmetic the
+CUDA kernels are held against, and what the dispatch layer
+(repro_torch.kernels.ops) runs for tensors on the CPU.
+
+Ports of ``repro.kernels.ref.paged_attention_ref`` and
+``mux_score_ref``.  They repeat the kernels' arithmetic at full
+materialisation and are no yardstick of speed.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+NEG_INF = -1e30
+
+
+def paged_attention_ref(q, k_pages, v_pages, block_tables, lengths, *,
+                        window: Optional[int] = None,
+                        chunk: Optional[int] = None,
+                        scale: Optional[float] = None,
+                        logit_cap: Optional[float] = None) -> torch.Tensor:
+    """Naive paged decode attention: gather pages via block table, mask
+    by per-row length, full-materialisation softmax.
+
+    q: (B, H, hd) one query token per row; k_pages/v_pages:
+    (P, page_size, K, hd|vd) pool-wide page slabs; block_tables: (B, M)
+    page ids ordered by logical position; lengths: (B,) visible tokens
+    per row (the query sits at lengths - 1).
+    Returns (B, H, vd) in q.dtype; rows with length 0 are exact zeros.
+    """
+    b, h, hd = q.shape
+    kk = k_pages.shape[2]
+    g = h // kk
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    bt = block_tables.long()
+    k = k_pages[bt].reshape(b, -1, kk, k_pages.shape[-1])
+    v = v_pages[bt].reshape(b, -1, kk, v_pages.shape[-1])
+    t = k.shape[1]
+    qr = (q * scale).reshape(b, kk, g, hd)
+    sc = torch.einsum("bkgd,btkd->bkgt", qr.float(), k.float())
+    if logit_cap is not None:
+        sc = torch.tanh(sc / logit_cap) * logit_cap
+    lengths = lengths.to(device=q.device, dtype=torch.long).reshape(-1)
+    kv_pos = torch.arange(t, device=q.device)[None, :]          # (1, T)
+    q_pos = lengths[:, None] - 1                                 # (B, 1)
+    mask = kv_pos < lengths[:, None]
+    if window is not None:
+        mask &= kv_pos > q_pos - window
+    if chunk is not None:
+        mask &= kv_pos >= torch.div(q_pos, chunk, rounding_mode="floor") * chunk
+    sc = torch.where(mask[:, None, None], sc, torch.full_like(sc, NEG_INF))
+    p = torch.softmax(sc, dim=-1)
+    out = torch.einsum("bkgt,btkv->bkgv", p, v.float())
+    out = out.reshape(b, h, v.shape[-1])
+    # a row with length 0 has an all-masked softmax; the kernel
+    # contract for such rows is exact zeros
+    out = torch.where(lengths[:, None, None] > 0, out, torch.zeros_like(out))
+    return out.to(q.dtype)
+
+
+def mux_score_ref(meta, v, cost, *, normalize: bool = True) -> torch.Tensor:
+    """Fused multiplexer head (paper Eq. 5-6).
+
+    meta: (B, M) raw meta-features; v: (N, M); cost: (N,) relative FLOPs.
+    Returns softmax_i((v_i . normalize(m)) / c_i): (B, N) fp32.
+    """
+    m = meta.float()
+    if normalize:
+        m = m / torch.clamp(torch.linalg.norm(m, dim=-1, keepdim=True),
+                            min=1e-6)
+    logits = m @ v.float().T / cost.float()[None, :]
+    return torch.softmax(logits, dim=-1)

@@ -1,0 +1,327 @@
+"""Pattern-tiled decoder LM, dense self-attention blocks, on the paged
+path.
+
+Port of ``repro.models.transformer`` for configs whose pattern holds
+only ``mixer="attn"`` layers with a dense (or no) MLP — olmo-1b and
+codeqwen1.5-7b among them.  Mamba, MLA, MoE, cross-attention, codebook
+heads, the ring cache and ``verify_paged`` are not ported yet and
+raise ``NotImplementedError``.
+
+Layout: as in the JAX package, the params of pattern position i are
+stacked over the G = num_layers / len(pattern) groups (leaves
+``(G, ...)``) and so are the paged-cache slabs; the forward pass loops
+over groups and indexes group g as a view.  Caches are updated in
+place (see ``repro_torch.models.attention``); ``prefill_paged`` and
+``decode_step`` still return ``(logits, caches)`` so call sites match
+the JAX package.
+
+Entry points:
+  * ``forward``        (train / prefill / decode, paged caches)
+  * ``prefill_paged``  (a prompt, or a shared-prefix tail, into pages)
+  * ``decode_step``    (one token per row at per-row positions)
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional
+
+import torch
+
+from repro_torch.configs.base import LayerSpec, ModelConfig
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import (apply_mlp, apply_norm, apply_rope,
+                                       dense_init, embed_init, init_mlp,
+                                       init_norm, softcap)
+
+Params = Dict[str, Any]
+
+
+def _check_supported(cfg: ModelConfig) -> None:
+    for spec in cfg.pattern:
+        if spec.mixer != "attn" or spec.mlp not in ("dense", "none"):
+            raise NotImplementedError(
+                f"{cfg.name}: the port runs dense self-attention blocks "
+                f"only, got mixer={spec.mixer!r} mlp={spec.mlp!r}")
+    if cfg.num_codebooks or cfg.pos_embed not in ("rope", "none"):
+        raise NotImplementedError(
+            f"{cfg.name}: codebook heads and sinusoidal positions are not "
+            f"ported")
+
+
+# ===========================================================================
+# Init
+# ===========================================================================
+
+def _init_layer(gen, spec: LayerSpec, cfg: ModelConfig, dt, dev) -> Params:
+    d = cfg.d_model
+    v_hd = cfg.v_head_dim or cfg.head_dim
+    a: Params = {
+        "wq": dense_init(gen, d, cfg.num_heads * cfg.head_dim, dt, device=dev),
+        "wk": dense_init(gen, d, cfg.num_kv_heads * cfg.head_dim, dt,
+                         device=dev),
+        "wv": dense_init(gen, d, cfg.num_kv_heads * v_hd, dt, device=dev),
+        "wo": dense_init(gen, cfg.num_heads * v_hd, d, dt, device=dev),
+    }
+    if cfg.qkv_bias:
+        a["bq"] = torch.zeros((cfg.num_heads * cfg.head_dim,), dtype=dt,
+                              device=dev)
+        a["bk"] = torch.zeros((cfg.num_kv_heads * cfg.head_dim,), dtype=dt,
+                              device=dev)
+        a["bv"] = torch.zeros((cfg.num_kv_heads * v_hd,), dtype=dt,
+                              device=dev)
+    if cfg.qk_norm:
+        a["q_norm"] = init_norm(cfg.head_dim, "rmsnorm", dt, device=dev)
+        a["k_norm"] = init_norm(cfg.head_dim, "rmsnorm", dt, device=dev)
+    p: Params = {"norm1": init_norm(d, cfg.norm, dt, device=dev), "attn": a}
+    if cfg.use_post_norm:
+        p["norm1_post"] = init_norm(d, cfg.norm, dt, device=dev)
+    if spec.mlp == "dense":
+        p["norm2"] = init_norm(d, cfg.norm, dt, device=dev)
+        if cfg.use_post_norm:
+            p["norm2_post"] = init_norm(d, cfg.norm, dt, device=dev)
+        p["mlp"] = init_mlp(gen, d, cfg.d_ff, gated=cfg.gated_mlp, dtype=dt,
+                            device=dev)
+    return p
+
+
+def _stack_into(dst: Params, g: int, src: Params) -> None:
+    for k, v in src.items():
+        if isinstance(v, dict):
+            _stack_into(dst[k], g, v)
+        else:
+            dst[k][g] = v
+
+
+def _empty_stack(src: Params, n: int) -> Params:
+    return {k: _empty_stack(v, n) if isinstance(v, dict)
+            else torch.empty((n,) + tuple(v.shape), dtype=v.dtype,
+                             device=v.device)
+            for k, v in src.items()}
+
+
+def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
+                device: DeviceLike = None, dtype=None) -> Params:
+    """Random params from ``generator`` (seed 0 when None) on ``device``
+    (``cuda`` unless given), in ``dtype`` (``cfg.pdtype`` when None).
+    Each weight is drawn in fp32 and cast, one layer at a time, so a
+    full-width bf16 model never holds an fp32 copy of itself."""
+    _check_supported(cfg)
+    dev = resolve_device(device)
+    dt = dtype if dtype is not None else cfg.pdtype
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    params: Params = {"embed": embed_init(generator, cfg.vocab_size,
+                                          cfg.d_model, dt, device=dev)}
+    blocks: Params = {}
+    for i, spec in enumerate(cfg.pattern):
+        for g in range(cfg.num_groups):
+            layer = _init_layer(generator, spec, cfg, dt, dev)
+            if g == 0:
+                blocks[f"p{i}"] = _empty_stack(layer, cfg.num_groups)
+            _stack_into(blocks[f"p{i}"], g, layer)
+    params["blocks"] = blocks
+    params["final_norm"] = init_norm(cfg.d_model, cfg.norm, dt, device=dev)
+    if not cfg.tie_embeddings:
+        params["head"] = dense_init(generator, cfg.d_model, cfg.vocab_size,
+                                    dt, device=dev)
+    return params
+
+
+# ===========================================================================
+# Caches
+# ===========================================================================
+
+def init_caches(cfg: ModelConfig, *, num_pages: int, page_size: int,
+                device: DeviceLike = None) -> Params:
+    """Paged-pool caches, one ``(G, num_pages, page_size, K, hd)`` slab
+    set per pattern position in ``cfg.kv_cache_dtype`` (int8 adds bf16
+    scale slabs).  Pages are shared across requests and addressed
+    through block tables."""
+    _check_supported(cfg)
+    dev = resolve_device(device)
+    g = cfg.num_groups
+    caches: Params = {}
+    for i, _spec in enumerate(cfg.pattern):
+        one = attn.init_paged_kv_cache(
+            num_pages * g, page_size, cfg.num_kv_heads, cfg.head_dim,
+            v_head_dim=cfg.v_head_dim, dtype=cfg.kv_cache_dtype,
+            device=dev)
+        caches[f"p{i}"] = {k: v.reshape((g, num_pages) + v.shape[1:])
+                           for k, v in one.items()}
+    return caches
+
+
+# ===========================================================================
+# Forward
+# ===========================================================================
+
+def _attn_scale(cfg: ModelConfig) -> float:
+    if cfg.query_scale is not None:
+        return cfg.query_scale
+    return 1.0 / math.sqrt(cfg.head_dim)
+
+
+def _mixer_forward(p: Params, spec: LayerSpec, cfg: ModelConfig, x, *,
+                   positions, mode: str, pos=None, cache=None,
+                   block_tables=None, q_offset=None, insert_from=None,
+                   prefetch=None):
+    """Self-attention.  Returns the mixer output; a paged ``cache`` is
+    written in place.  In decode mode ``pos`` is per-row (B,);
+    ``q_offset`` (prefill) is the shared-prefix tail path: K/V is
+    written at absolute positions q_offset.. and attention runs over
+    the gathered pool view (resident prefix + tail); ``insert_from``
+    keeps tail writes off resident shared pages."""
+    b = x.shape[0]
+    ap = p["attn"]
+    q, k, v = attn.qkv_project(ap, x, num_heads=cfg.num_heads,
+                               num_kv_heads=cfg.num_kv_heads,
+                               head_dim=cfg.head_dim,
+                               v_head_dim=cfg.v_head_dim,
+                               qk_norm=cfg.qk_norm)
+    if spec.rope and cfg.pos_embed == "rope":
+        rp = pos.reshape(-1, 1).expand(b, 1) if mode == "decode" else positions
+        q = apply_rope(q, rp, theta=cfg.rope_theta)
+        k = apply_rope(k, rp, theta=cfg.rope_theta)
+    window = cfg.window if spec.attn_kind == "swa" else None
+    chunk = cfg.chunk if spec.attn_kind == "chunked" else None
+    kw = dict(window=window, chunk=chunk, scale=_attn_scale(cfg),
+              logit_cap=cfg.attn_logit_cap)
+    if mode == "decode":
+        attn.paged_cache_insert(cache, k, v, block_tables, pos)
+        out = attn.paged_decode_attention(q, cache, block_tables, pos,
+                                          prefetch=prefetch, **kw)
+    elif block_tables is not None and q_offset is not None:
+        # shared-prefix tail prefill: write the tail's K/V into the pool
+        # first, then attend over the block-table gather — the resident
+        # prefix pages this request mapped plus its own tail
+        attn.paged_cache_prefill(cache, k, v, block_tables, start=q_offset,
+                                 insert_from=insert_from)
+        out = attn.paged_prefill_attention(q, cache, block_tables, q_offset,
+                                           **kw)
+    else:
+        out = attn.blocked_attention(q, k, v, causal=True, **kw)
+        if cache is not None:
+            attn.paged_cache_prefill(cache, k, v, block_tables, start=0)
+    return attn.out_project(ap, out)
+
+
+def _block_forward(p: Params, spec: LayerSpec, cfg: ModelConfig, h, **kw):
+    """One transformer block (pre-norm, optional post-norms)."""
+    out = _mixer_forward(p, spec, cfg,
+                         apply_norm(p["norm1"], h, cfg.norm, cfg.norm_eps),
+                         **kw)
+    if cfg.use_post_norm:
+        out = apply_norm(p["norm1_post"], out, cfg.norm, cfg.norm_eps)
+    if cfg.residual_scale is not None:
+        out = out * cfg.residual_scale
+    h = h + out
+    if spec.mlp != "none":
+        y = apply_norm(p["norm2"], h, cfg.norm, cfg.norm_eps)
+        y = apply_mlp(p["mlp"], y, gated=cfg.gated_mlp, act=cfg.act)
+        if cfg.use_post_norm:
+            y = apply_norm(p["norm2_post"], y, cfg.norm, cfg.norm_eps)
+        if cfg.residual_scale is not None:
+            y = y * cfg.residual_scale
+        h = h + y
+    return h
+
+
+def embed_tokens(params: Params, cfg: ModelConfig, tokens):
+    """tokens: (B, S) int -> (B, S, D) in the compute dtype."""
+    h = params["embed"][tokens.long()].to(cfg.cdtype)
+    if cfg.embed_scale is not None:
+        h = h * torch.tensor(cfg.embed_scale, dtype=cfg.cdtype)
+    return h
+
+
+def unembed(params: Params, cfg: ModelConfig, h):
+    """h (B, S, D) -> logits (B, S, V); tied or untied head."""
+    if cfg.tie_embeddings:
+        logits = h @ params["embed"].to(h.dtype).T
+    else:
+        logits = h @ params["head"].to(h.dtype)
+    if cfg.final_logit_cap is not None:
+        logits = softcap(logits, cfg.final_logit_cap)
+    return logits
+
+
+def forward(params: Params, cfg: ModelConfig, tokens, *, mode: str = "train",
+            caches=None, pos=None, block_tables=None, q_offset=None,
+            insert_from=None, prefetch=None):
+    """Main entry.  mode: train | prefill | decode.
+
+    ``block_tables`` (B, M) routes the cache path through the paged
+    pool; decode ``pos`` is then per-row (B,).  Prefill ``q_offset``
+    shifts the sequence to absolute positions q_offset.. (the
+    shared-prefix tail path); ``insert_from`` bounds which of those
+    positions write the pool.  ``prefetch`` is the combined decode-step
+    operand (``attention.build_decode_prefetch``), shared by every
+    layer.  Returns (hidden (B, S, D) post-final-norm, caches).
+    """
+    _check_supported(cfg)
+    dev = params["embed"].device
+    positions = None
+    if mode != "decode":
+        b, s = tokens.shape[:2]
+        positions = torch.arange(s, device=dev)[None].expand(b, s)
+        if q_offset is not None:
+            off = torch.as_tensor(q_offset, device=dev).long()
+            positions = positions + (off[:, None] if off.ndim == 1 else off)
+    else:
+        pos = torch.as_tensor(pos, device=dev).long().reshape(-1)
+    h = embed_tokens(params, cfg, tokens)
+    for g in range(cfg.num_groups):
+        for i, spec in enumerate(cfg.pattern):
+            p = _group(params["blocks"][f"p{i}"], g)
+            cache = None if caches is None else _group(caches[f"p{i}"], g)
+            h = _block_forward(p, spec, cfg, h, positions=positions,
+                               mode=mode, pos=pos, cache=cache,
+                               block_tables=block_tables, q_offset=q_offset,
+                               insert_from=insert_from, prefetch=prefetch)
+    h = apply_norm(params["final_norm"], h, cfg.norm, cfg.norm_eps)
+    return h, caches
+
+
+def _group(tree: Params, g: int) -> Params:
+    """Group ``g``'s slice of a stacked params / cache tree (views)."""
+    return {k: _group(v, g) if isinstance(v, dict) else v[g]
+            for k, v in tree.items()}
+
+
+def prefill_paged(params: Params, cfg: ModelConfig, tokens, caches,
+                  block_tables, last_index=None, *, q_offset=None,
+                  insert_from=None):
+    """Prefill a prompt (or a shared-prefix tail) into pages of a shared
+    pool, in place.
+
+    tokens: (B, S) — S may include right padding (padded slots hold
+    garbage K/V at positions past the live query, overwritten by decode
+    inserts before they become visible).  block_tables: (B, M) page ids
+    for these rows.  last_index: index of the last real token within
+    ``tokens`` (default S - 1).  q_offset: absolute position of
+    tokens[:, 0] — positions below it are resident pages read, not
+    recomputed.  insert_from: absolute position below which the tail
+    does not write the pool (those slots belong to shared pages).
+    Returns (next-token logits (B, 1, V), caches).
+    """
+    h, caches = forward(params, cfg, tokens, mode="prefill", caches=caches,
+                        block_tables=block_tables, q_offset=q_offset,
+                        insert_from=insert_from)
+    i = h.shape[1] - 1 if last_index is None else int(last_index)
+    return unembed(params, cfg, h[:, i:i + 1]), caches
+
+
+def decode_step(params: Params, cfg: ModelConfig, token, caches, pos, *,
+                block_tables):
+    """One decode step over the paged pool.  token (B, 1); pos (B,)
+    per-row positions (rows may sit at different positions).  The
+    combined block-table + lengths operand is built once here and
+    shared by every layer's paged-attention call.
+    Returns (logits (B, 1, V), caches)."""
+    pos = torch.as_tensor(pos, device=block_tables.device).long().reshape(-1)
+    prefetch = attn.build_decode_prefetch(block_tables, pos)
+    h, caches = forward(params, cfg, token, mode="decode", caches=caches,
+                        pos=pos, block_tables=block_tables,
+                        prefetch=prefetch)
+    return unembed(params, cfg, h), caches

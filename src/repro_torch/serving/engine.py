@@ -1,0 +1,646 @@
+"""Paged serving engine: prefill into a shared page pool, token-level
+continuous decode.
+
+Port of the paged path of ``repro.serving.engine``.  KV lives in a
+pool of (page_size)-token pages shared by all in-flight requests
+(``PagePool``); each request holds ceil(tokens / page_size) pages
+addressed through a block-table row, and a decode batch mixes requests
+at *different* positions.  Prefix sharing maps a resident prompt's
+pages into a new request, a cross-request logit cache serves repeat
+prompts with no device work, and a decode step that would write into a
+shared page copies it first (copy-on-write) inside the same step.
+
+Differences from the JAX engine:
+
+* PyTorch runs eagerly, so there is no jit and no donation: the pool
+  tensors are preallocated once and updated in place.  A failure in
+  the middle of a step can leave the pool partly written, so any
+  device-side exception marks the caches poisoned (``caches_poisoned``),
+  as a failed donating call does in the JAX engine.
+* Temperature > 0 draws each row's token from a ``torch.Generator``
+  seeded from (the request's seed, the token's position): a row's token
+  does not depend on its batch mates, as in the JAX engine, but the
+  stream differs from ``jax.random``'s.  Greedy decoding (temperature
+  0) is an exact argmax in both.
+* Not ported yet: the ring-cache ``generate``, the host-RAM tier, lazy
+  decode allocation, ``verify_step_batch`` and ``rollback_pages``.
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+import hashlib
+import threading
+import time
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import transformer as tf
+from repro_torch.models.attention import SCRATCH_PAGE
+from repro_torch.serving.kv_cache import OutOfPages, PagePool, PagedSequence
+from repro_torch.serving.observability.tracer import NULL_TRACER
+
+
+@dataclasses.dataclass
+class ServeConfig:
+    max_len: int = 256                  # cache capacity per request
+    temperature: float = 0.0            # 0 = greedy
+    seed: int = 0
+
+
+def _row_seed(seed: int, position: int) -> int:
+    """Generator seed of the token sampled at ``position`` of a request
+    rooted at ``seed``: a function of the pair alone."""
+    return ((int(seed) & 0xFFFFFFFF) << 32) | (int(position) & 0xFFFFFFFF)
+
+
+class Engine:
+    """Paged prefill / decode for one model on one device."""
+
+    def __init__(self, cfg: ModelConfig, params: Any, scfg: ServeConfig,
+                 device: DeviceLike = None):
+        self.cfg = cfg
+        self.scfg = scfg
+        self.params = params
+        self.device = resolve_device(device)
+        if params["embed"].device.type != self.device.type:
+            raise ValueError(f"params on {params['embed'].device}, engine on "
+                             f"{self.device}")
+        # serializes the entry points that write the pool in place
+        # (prefill_chunk / decode_step_batch): a backend executor and a
+        # MuxServer.probe prewarm on the caller thread must never overlap
+        # on one engine.  RLock: prefill_into_pages nests prefill_chunk.
+        self._device_lock = threading.RLock()
+        # paged state (populated by init_paged)
+        self.pool: Optional[PagePool] = None
+        self._paged_caches = None
+        self._max_pages = 0
+        self._decode_batch = 0
+        self._caches_poisoned = False
+        # prefix-sharing accounting: prompt tokens run through prefill
+        # (padded) vs mapped from a resident shared prefix, and
+        # copy-on-write page copies made
+        self.prefill_tokens_computed = 0
+        self.prefill_tokens_shared = 0
+        self.cow_count = 0
+        # cross-request logit cache: full-prompt hash -> the final prompt
+        # token's logits row (bounded LRU; disabled at capacity 0)
+        self._logit_cache: "collections.OrderedDict[bytes, np.ndarray]" = \
+            collections.OrderedDict()
+        self._logit_cache_cap = 0
+        self.logit_cache_hits = 0
+        self.logit_cache_misses = 0
+        # probe-path prewarm residents (prompt key -> held sequence)
+        self._prewarmed: "collections.OrderedDict[bytes, PagedSequence]" = \
+            collections.OrderedDict()
+        self._prewarm_cap = 0
+        # window/chunked span reclaim (None = a full-span layer exists)
+        self._layer_spans: Optional[List[Tuple[str, int]]] = None
+        self.reclaimed_pages = 0
+        self.tracer = NULL_TRACER
+        self.trace_track = f"engine:{cfg.name}/events"
+
+    @property
+    def caches_poisoned(self) -> bool:
+        """True once a paged step failed on the device: the pool may be
+        partly written, so the engine cannot serve the paged path again
+        (rebuild via init_paged)."""
+        return self._caches_poisoned
+
+    def _check_capacity(self, p: int, max_new_tokens: int) -> None:
+        if p + max_new_tokens > self.scfg.max_len:
+            raise ValueError(
+                f"prompt length {p} + max_new_tokens {max_new_tokens} "
+                f"exceeds the engine's cache capacity "
+                f"max_len={self.scfg.max_len}; raise ServeConfig.max_len "
+                f"or shorten the request")
+
+    def _sample_rows(self, logits, seeds, positions, temps=None) -> np.ndarray:
+        """Per-row sampling of logits (B, V): rows at temperature <= 0
+        take the argmax; a sampled row draws from a generator on the
+        logits' device seeded by (seeds[i], positions[i]), independent
+        of its batch mates.  Only the chosen ids reach the host."""
+        if temps is None:
+            t = np.full((logits.shape[0],), self.scfg.temperature, np.float32)
+        else:
+            t = np.asarray([self.scfg.temperature if x is None else x
+                            for x in temps], np.float32)
+        ids = torch.argmax(logits, dim=-1).to(torch.int32)
+        for i in np.nonzero(t > 0.0)[0]:
+            gen = torch.Generator(device=logits.device).manual_seed(
+                _row_seed(seeds[i], positions[i]))
+            probs = torch.softmax(logits[i].float() / float(t[i]), -1)
+            ids[i] = torch.multinomial(probs, 1, generator=gen)[0]
+        return ids.cpu().numpy()
+
+    # ------------------------------------------------------------------
+    # Paged path: pool-backed caches, token-level continuous decode
+    # ------------------------------------------------------------------
+    def init_paged(self, *, num_pages: int, page_size: int = 64,
+                   decode_batch: int = 8,
+                   prefix_sharing: bool = True,
+                   logit_cache: int = 0) -> PagePool:
+        """Allocate the paged KV pool in ``cfg.kv_cache_dtype`` (int8
+        pools store quantized pages, dequantized in the kernel).  The
+        pool is sized in *pages*, not batch slots.
+        ``prefix_sharing=False`` disables the prefix index.
+        ``logit_cache`` is the LRU capacity of the cross-request logit
+        cache (0 = off).  Decode frees pages that have fallen wholly
+        below every layer's attention span."""
+        self.pool = PagePool(num_pages=num_pages, page_size=page_size,
+                             prefix_sharing=prefix_sharing)
+        self._max_pages = self.pool.pages_for(self.scfg.max_len)
+        self._decode_batch = decode_batch
+        self._caches_poisoned = False
+        self.prefill_tokens_computed = 0
+        self.prefill_tokens_shared = 0
+        self.cow_count = 0
+        self._logit_cache = collections.OrderedDict()
+        self._logit_cache_cap = int(logit_cache)
+        self.logit_cache_hits = 0
+        self.logit_cache_misses = 0
+        self._prewarmed = collections.OrderedDict()
+        self._prewarm_cap = max(1, min(4, int(logit_cache)))
+        self._layer_spans = self._banded_spans()
+        self.reclaimed_pages = 0
+        self._paged_caches = None       # free the old pool before the new
+        self._paged_caches = tf.init_caches(
+            self.cfg, num_pages=num_pages, page_size=page_size,
+            device=self.device)
+        return self.pool
+
+    @property
+    def decode_batch(self) -> int:
+        """Decode-batch capacity of the paged path (0 before
+        init_paged)."""
+        return self._decode_batch
+
+    # ---- window/chunked span reclaim ----------------------------------
+    def _banded_spans(self) -> Optional[List[Tuple[str, int]]]:
+        """(kind, span) per pattern layer when EVERY layer is banded
+        (swa/chunked); None when any layer attends the full context —
+        the block tables are shared across layers, so a page is only
+        freeable once no layer can ever look at it again."""
+        spans: List[Tuple[str, int]] = []
+        for spec in self.cfg.pattern:
+            if (spec.mixer == "attn" and spec.attn_kind == "swa"
+                    and self.cfg.window):
+                spans.append(("swa", int(self.cfg.window)))
+            elif (spec.mixer == "attn" and spec.attn_kind == "chunked"
+                    and self.cfg.chunk):
+                spans.append(("chunked", int(self.cfg.chunk)))
+            else:
+                return None
+        return spans
+
+    def _reclaim_out_of_span(self, seq: PagedSequence) -> None:
+        """Decref pages wholly below every layer's attention span.  The
+        lower bounds of swa (pos - window + 1) and chunked (chunk floor)
+        layers never decrease, so once a page's last token falls below
+        the minimum across layers no future query can see it; its
+        block-table slot points at scratch and the page returns to the
+        pool."""
+        if self._layer_spans is None:
+            return
+        pos = seq.pos                  # next insert/query position
+        lo = None
+        for kind, span in self._layer_spans:
+            l = pos - span + 1 if kind == "swa" else (pos // span) * span
+            lo = l if lo is None else min(lo, l)
+        if lo is None or lo <= 0:
+            return
+        freeable = min(lo // self.pool.page_size, len(seq.pages))
+        if freeable <= seq.reclaimed_upto:
+            return                     # nothing new fell out of span
+        freed: List[int] = []
+        for idx in range(seq.reclaimed_upto, freeable):
+            pg = seq.pages[idx]
+            if pg is None:
+                continue               # already reclaimed
+            seq.prefix_keys = self.pool.disown_prefix(seq.prefix_keys, pg)
+            seq.pages[idx] = None
+            seq.block_table[idx] = SCRATCH_PAGE
+            freed.append(pg)
+        seq.reclaimed_upto = freeable
+        if freed:
+            self.pool.decref(freed)
+            self.reclaimed_pages += len(freed)
+            self.tracer.instant("span_reclaim", track=self.trace_track,
+                                args={"pages": len(freed), "pos": pos})
+
+    # ---- probe-path prewarm -------------------------------------------
+    def prewarm_logits(self, prompt) -> Optional[np.ndarray]:
+        """Probe-path prewarm: run — or reuse — the prompt's prefill,
+        keep its pages resident in a small LRU of held sequences, and
+        cache the final-token logits row, so a follow-up admission of
+        the same prompt is a zero-FLOP logit-cache hit.  Returns the
+        logits row; best-effort — a full pool or an engine without a
+        logit cache returns None."""
+        if self.pool is None or self._logit_cache_cap <= 0:
+            return None
+        prompt_np = np.asarray(prompt, np.int32).reshape((-1,))
+        if len(prompt_np) < 1:
+            return None
+        key = self._prompt_key(prompt_np)
+        if key in self._prewarmed:
+            self._prewarmed.move_to_end(key)
+            return self._logit_cache_get(key)
+        try:
+            seq = self.prefill_into_pages(prompt_np, max_new_tokens=1)
+        except (OutOfPages, ValueError):
+            return None                # probe must never fail admission
+        self._prewarmed[key] = seq
+        while len(self._prewarmed) > self._prewarm_cap:
+            _, old = self._prewarmed.popitem(last=False)
+            self.pool.release(old)
+        self.tracer.instant("prewarm", track=self.trace_track,
+                            args={"pages": len(seq.pages),
+                                  "residents": len(self._prewarmed)})
+        return self._logit_cache_get(key)
+
+    def shed_prewarmed(self) -> int:
+        """Release every probe-prewarmed resident (prewarmed pages are a
+        cache; real requests outrank them).  Returns the number shed."""
+        shed = 0
+        while self._prewarmed:
+            _, old = self._prewarmed.popitem(last=False)
+            self.pool.release(old)
+            shed += 1
+        return shed
+
+    def _shared_prefix(self, prompt_np: np.ndarray,
+                       p: int) -> Tuple[List[int], int, int]:
+        """Resident pages this prompt can map: (mapped_pages,
+        matched_len, shared_len).  shared_len (the tokens *not*
+        recomputed) is clamped to p - 1 — prefill must always run at
+        least the final prompt token to produce next-token logits."""
+        if self.pool is None or not self.pool.prefix_sharing:
+            return [], 0, 0
+        mapped, matched = self.pool.lookup_prefix(prompt_np)
+        shared_len = min(matched, p - 1)
+        if shared_len <= 0:
+            return [], 0, 0
+        return mapped, matched, shared_len
+
+    def admission_page_cost(self, prompt, max_new_tokens: int, *,
+                            chunk_tokens: Optional[int] = None
+                            ) -> Tuple[int, int]:
+        """(pages a fresh admission would allocate now, free pages to
+        hold back for its future copy-on-write).  With prefix sharing
+        this is the *unique*-page cost; the headroom is 1 when the
+        prompt would map a resident's partially-filled boundary page.
+        With ``chunk_tokens`` (chunked prefill) admission budgets the
+        first chunk rather than the whole prompt."""
+        prompt_np = np.asarray(prompt, np.int32).reshape((-1,))
+        p = len(prompt_np)
+        total = self.pool.pages_for(p + max_new_tokens)
+        mapped, matched, shared_len = self._shared_prefix(prompt_np, p)
+        headroom = (1 if (mapped and matched == p and p % self.pool.page_size)
+                    else 0)
+        if chunk_tokens is not None and shared_len + chunk_tokens < p:
+            first = self.pool.pages_for(shared_len + chunk_tokens)
+            return max(first - len(mapped), 0), headroom
+        return total - len(mapped), headroom
+
+    @staticmethod
+    def _prompt_key(prompt_np: np.ndarray) -> bytes:
+        return hashlib.sha1(
+            np.ascontiguousarray(prompt_np, np.int64).tobytes()).digest()
+
+    def _logit_cache_get(self, key: bytes) -> Optional[np.ndarray]:
+        row = self._logit_cache.get(key)
+        if row is not None:
+            self._logit_cache.move_to_end(key)
+        return row
+
+    def _logit_cache_put(self, key: bytes, row: np.ndarray) -> None:
+        if self._logit_cache_cap <= 0:
+            return
+        self._logit_cache[key] = row
+        self._logit_cache.move_to_end(key)
+        while len(self._logit_cache) > self._logit_cache_cap:
+            self._logit_cache.popitem(last=False)
+
+    # ---- resumable prefill --------------------------------------------
+    def begin_prefill(self, prompt, *, max_new_tokens: int,
+                      seed: Optional[int] = None,
+                      temperature: Optional[float] = None,
+                      stop_tokens: Sequence[int] = ()) -> PagedSequence:
+        """Host-side admission of one request: validate and return a
+        *resumable* sequence — ``prefill_chunk`` then runs the prompt
+        through the device in chunks, allocating pages as it goes,
+        until the first token samples.  ``PagePool.release(seq)`` at any
+        point hands back exactly what the sequence holds.  The
+        shared-prefix lookup is deferred to the first ``prefill_chunk``
+        call, so a burst of admissions begun together can still share a
+        prefix the first of them only registers when it seals."""
+        if self.pool is None:
+            raise RuntimeError("no paged KV pool: call init_paged() first")
+        if max_new_tokens < 1:
+            raise ValueError(
+                f"max_new_tokens must be >= 1 (prefill always samples the "
+                f"first token), got {max_new_tokens}")
+        prompt_np = np.asarray(prompt, np.int32).reshape((-1,))
+        p = len(prompt_np)
+        if p < 1:
+            raise ValueError("prompt must hold at least one token")
+        self._check_capacity(p, max_new_tokens)
+        seq_seed = self.scfg.seed if seed is None else seed
+        return PagedSequence(
+            pages=[],
+            block_table=self.pool.block_table([], self._max_pages),
+            prompt_len=p, pos=0, max_new_tokens=max_new_tokens,
+            last_token=-1, seed=seq_seed, shared_prefix_len=0,
+            prompt=prompt_np, prefill_pos=0, prefill_done=False,
+            prefix_mapped=False, insert_from=0,
+            stop_tokens=frozenset(int(t) for t in stop_tokens),
+            temperature=temperature)
+
+    def _map_shared_prefix(self, seq: PagedSequence) -> None:
+        """Lazy first-chunk mapping: incref any resident shared-prefix
+        pages and, on a fully-resident repeat prompt with a cached
+        final-token logits row, seal the prefill with no device work
+        (the logit-cache fast path).  Runs once per sequence; an
+        OutOfPages from the fast path leaves the mapped pages held and
+        the sequence resumable."""
+        pool, ps = self.pool, self.pool.page_size
+        p = seq.prompt_len
+        mapped, matched, shared_len = self._shared_prefix(seq.prompt, p)
+        seq.prefix_mapped = True
+        if mapped:
+            pool.incref(mapped)
+            if matched == p and p % ps:
+                # the resident's partially-filled boundary page is now
+                # shared; whichever holder inserts into it first must
+                # copy-on-write (admission reserved the headroom)
+                pool.mark_cow_risk(mapped[-1])
+            for i, pg in enumerate(mapped):
+                seq.block_table[i] = pg
+            seq.pages = list(mapped)
+            seq.prefill_pos = shared_len
+            seq.shared_prefix_len = shared_len
+            seq.insert_from = len(mapped) * ps
+        if matched == p and self._logit_cache_cap > 0:
+            row = self._logit_cache_get(self._prompt_key(seq.prompt))
+            if row is not None:
+                self._grow_pages(seq, pool.pages_for(p + seq.max_new_tokens))
+                tok = int(self._sample_rows(
+                    torch.from_numpy(row)[None], [seq.seed], [p],
+                    temps=[seq.temperature])[0])
+                self.logit_cache_hits += 1
+                self.prefill_tokens_shared += p
+                seq.shared_prefix_len = p
+                self.tracer.instant("logit_cache_hit",
+                                    track=self.trace_track,
+                                    args={"prompt_len": int(p)})
+                self._seal_prefill(seq, tok)
+
+    def _grow_pages(self, seq: PagedSequence, upto: int) -> None:
+        """Extend ``seq`` to hold ``upto`` pages (alloc + block-table
+        update).  Raises OutOfPages with nothing mutated."""
+        need = upto - len(seq.pages)
+        if need <= 0:
+            return
+        new = self.pool.alloc(need)
+        for pg in new:
+            seq.block_table[len(seq.pages)] = pg
+            seq.pages.append(pg)
+
+    def _seal_prefill(self, seq: PagedSequence, tok: int) -> None:
+        seq.last_token = tok
+        seq.tokens = [tok]
+        seq.pos = seq.prompt_len
+        seq.prefill_pos = seq.prompt_len
+        seq.prefill_done = True
+        seq.prefix_keys = self.pool.register_prefix(seq.prompt, seq.pages)
+
+    def prefill_chunk(self, seq: PagedSequence, *,
+                      chunk_tokens: Optional[int] = None) -> bool:
+        """Run the next prefill chunk of a sequence started by
+        ``begin_prefill``; returns True once the prompt is fully
+        prefilled and the first token sampled.
+
+        ``chunk_tokens`` (a multiple of page_size) caps this step's
+        prompt span — the q_offset tail path computes positions
+        ``prefill_pos .. prefill_pos + chunk - 1`` against everything
+        already resident.  ``None`` runs the whole remaining prompt.
+        Pages for the chunk (plus the decode budget, on the final
+        chunk) allocate here; OutOfPages raises *before* any device
+        work with the sequence unchanged."""
+        with self._device_lock:
+            return self._prefill_chunk_locked(seq, chunk_tokens=chunk_tokens)
+
+    def _prefill_chunk_locked(self, seq: PagedSequence, *,
+                              chunk_tokens: Optional[int] = None) -> bool:
+        if seq.prefill_done:
+            return True
+        pool = self.pool
+        ps = pool.page_size
+        if chunk_tokens is not None and (chunk_tokens < ps
+                                         or chunk_tokens % ps):
+            raise ValueError(
+                f"chunk_tokens must be a positive multiple of the page "
+                f"size {ps}, got {chunk_tokens}")
+        if not seq.prefix_mapped:
+            self._map_shared_prefix(seq)    # OutOfPages: seq resumable
+            if seq.prefill_done:            # logit-cache fast path
+                return True
+        p = seq.prompt_len
+        o = seq.prefill_pos
+        length = p - o if chunk_tokens is None else min(chunk_tokens, p - o)
+        final = o + length >= p
+        span = (p + seq.max_new_tokens) if final else (o + length)
+        self._grow_pages(seq, pool.pages_for(span))    # OutOfPages: no-op
+        dev = self.device
+        bt = torch.as_tensor(seq.block_table[None], device=dev)
+        try:
+            if o == 0 and final:
+                # whole prompt in one call (no resident prefix), padded
+                # to its page rounding
+                pad = pool.pages_for(p) * ps
+                toks = np.zeros((1, pad), np.int32)
+                toks[0, :p] = seq.prompt
+                logits, _ = tf.prefill_paged(
+                    self.params, self.cfg, torch.as_tensor(toks, device=dev),
+                    self._paged_caches, bt, p - 1)
+            else:
+                # q_offset tail path: positions < o are read back from
+                # pages earlier chunks (or a resident shared prefix)
+                # already filled; writes below ``insert_from`` go to
+                # scratch so a shared boundary page is never touched
+                pad = (chunk_tokens if chunk_tokens is not None
+                       else pool.pages_for(length) * ps)
+                toks = np.zeros((1, pad), np.int32)
+                toks[0, :length] = seq.prompt[o:o + length]
+                last = (p - 1 - o) if final else (length - 1)
+                logits, _ = tf.prefill_paged(
+                    self.params, self.cfg, torch.as_tensor(toks, device=dev),
+                    self._paged_caches, bt, last, q_offset=o,
+                    insert_from=seq.insert_from)
+            self.prefill_tokens_computed += int(pad)
+            if final:
+                row = logits[0, 0].float().cpu().numpy()
+                tok = int(self._sample_rows(
+                    torch.from_numpy(row)[None], [seq.seed], [p],
+                    temps=[seq.temperature])[0])
+            elif dev.type == "cuda":
+                torch.cuda.synchronize(dev)   # surface a device fault here
+        except Exception:
+            # the pool may be partly written; the caller still holds (and
+            # must release) the sequence — its page list is exact, so
+            # release() is a complete rollback
+            self._caches_poisoned = True
+            raise
+        if final:
+            self.prefill_tokens_shared += seq.shared_prefix_len
+            if self._logit_cache_cap > 0:
+                self.logit_cache_misses += 1
+                self._logit_cache_put(self._prompt_key(seq.prompt), row)
+            self._seal_prefill(seq, tok)
+        else:
+            seq.prefill_pos = o + length
+        return seq.prefill_done
+
+    def prefill_into_pages(self, prompt, *, max_new_tokens: int,
+                           seed: Optional[int] = None,
+                           temperature: Optional[float] = None,
+                           stop_tokens: Sequence[int] = ()) -> PagedSequence:
+        """Admit one request in one call: ``begin_prefill`` + the whole
+        prompt through ``prefill_chunk``.  The returned sequence can join
+        a running decode batch immediately.  Raises ValueError if
+        prompt + max_new_tokens exceeds max_len, and OutOfPages when the
+        pool cannot hold the request; any failure releases everything
+        the admission held."""
+        seq = self.begin_prefill(prompt, max_new_tokens=max_new_tokens,
+                                 seed=seed, temperature=temperature,
+                                 stop_tokens=stop_tokens)
+        try:
+            while not seq.prefill_done:
+                self.prefill_chunk(seq)
+        except Exception:
+            self.pool.release(seq)  # failed admission must not leak pages
+            raise
+        return seq
+
+    def decode_step_batch(self, seqs: Sequence[PagedSequence]) -> np.ndarray:
+        """One decode step for up to ``decode_batch`` running sequences
+        at *different* positions.  Rows beyond len(seqs) are inactive:
+        they write to the scratch page and their samples are discarded.
+        Advances each sequence in place; returns the sampled tokens
+        (len(seqs),)."""
+        with self._device_lock:
+            return self._decode_step_batch_locked(seqs)
+
+    def _decode_step_batch_locked(self, seqs: Sequence[PagedSequence]
+                                  ) -> np.ndarray:
+        if self.pool is None:
+            raise RuntimeError("no paged KV pool: call init_paged() first")
+        cap = self._decode_batch
+        if len(seqs) > cap:
+            raise ValueError(f"{len(seqs)} sequences > decode_batch={cap}")
+        ps = self.pool.page_size
+        # copy-on-write: a sequence about to insert into a page other
+        # sequences still map gets a private copy as part of this step
+        # (sharing must never let one request's decode tokens leak into
+        # another's prefix).  Pages allocate BEFORE any device work —
+        # OutOfPages here leaves the pool intact and only this request
+        # need fail — and refcount / block-table bookkeeping waits until
+        # the step succeeds.  ``pending`` mirrors the decrefs that
+        # bookkeeping will apply, so the second holder of a page the
+        # first row is already copying keeps the original page.
+        cow: List[Tuple[int, PagedSequence, int, int, int]] = []
+        pending: Dict[int, int] = {}
+        for i, seq in enumerate(seqs):
+            idx = seq.pos // ps
+            old = seq.pages[idx]
+            if self.pool.refcount(old) - pending.get(old, 0) > 1:
+                try:
+                    new = self.pool.alloc(1)[0]
+                except OutOfPages as exc:
+                    # roll back this step's earlier COW allocations
+                    self.pool.decref([n for _, _, _, _, n in cow])
+                    exc.cow_seq = seq
+                    raise
+                cow.append((i, seq, idx, old, new))
+                pending[old] = pending.get(old, 0) + 1
+        tokens = np.zeros((cap, 1), np.int32)
+        bt = np.full((cap, self._max_pages), SCRATCH_PAGE, np.int32)
+        pos = np.zeros((cap,), np.int32)
+        seeds = np.zeros((cap,), np.int64)
+        temps: List[Optional[float]] = [None] * cap
+        for i, seq in enumerate(seqs):
+            tokens[i, 0] = seq.last_token
+            bt[i] = seq.block_table
+            pos[i] = seq.pos
+            seeds[i] = seq.seed
+            temps[i] = seq.temperature
+        # COWing rows decode against their private copy: the step copies
+        # old -> new across every layer's slabs, then the insert lands in
+        # the copy
+        for i, seq, idx, old, new in cow:
+            bt[i, idx] = new
+        dev = self.device
+        try:
+            if cow:
+                src = torch.as_tensor([c[3] for c in cow], device=dev)
+                dst = torch.as_tensor([c[4] for c in cow], device=dev)
+                for slabs in self._paged_caches.values():
+                    for x in slabs.values():
+                        x[:, dst] = x[:, src]
+            logits, _ = tf.decode_step(
+                self.params, self.cfg, torch.as_tensor(tokens, device=dev),
+                self._paged_caches, torch.as_tensor(pos, device=dev),
+                block_tables=torch.as_tensor(bt, device=dev))
+            # row i's next token sits at position pos[i] + 1; keying the
+            # sample by (seq.seed, position) keeps a sampled generation
+            # independent of batch composition
+            nxt = self._sample_rows(logits[:, 0], seeds, pos + 1, temps=temps)
+        except Exception:
+            self._caches_poisoned = True
+            self.pool.decref([n for _, _, _, _, n in cow])
+            raise
+        for i, seq, idx, old, new in cow:
+            # the copy diverged from the indexed prefix the moment the
+            # step inserted, so this sequence stops backing entries for
+            # the old page; the remaining holders keep them valid
+            seq.prefix_keys = self.pool.disown_prefix(seq.prefix_keys, old)
+            self.pool.decref([old])
+            seq.pages[idx] = new
+            seq.block_table[idx] = new
+            self.cow_count += 1
+            self.tracer.instant("cow", track=self.trace_track,
+                                args={"old": int(old), "new": int(new),
+                                      "fused": True})
+        for i, seq in enumerate(seqs):
+            seq.pos += 1
+            seq.last_token = int(nxt[i])
+            seq.tokens.append(int(nxt[i]))
+            self._reclaim_out_of_span(seq)
+        return nxt[:len(seqs)]
+
+    def generate_paged(self, prompt, *, max_new_tokens: int,
+                       seed: Optional[int] = None,
+                       temperature: Optional[float] = None,
+                       stop_tokens: Sequence[int] = ()) -> Dict[str, Any]:
+        """Single-request convenience over the paged entry points
+        (prefill -> solo decode batch -> release pages)."""
+        t0 = time.time()
+        seq = self.prefill_into_pages(prompt, max_new_tokens=max_new_tokens,
+                                      seed=seed, temperature=temperature,
+                                      stop_tokens=stop_tokens)
+        t1 = time.time()
+        try:
+            while not seq.done:
+                self.decode_step_batch([seq])
+            t2 = time.time()
+        finally:
+            self.pool.release(seq)      # a failed decode must not leak
+        prompt_np = np.asarray(prompt, np.int32).reshape((-1,))
+        tokens = np.concatenate([prompt_np, np.asarray(seq.tokens, np.int32)])
+        return {"tokens": tokens, "prefill_s": t1 - t0, "decode_s": t2 - t1,
+                "finish_reason": seq.finish_reason,
+                "tokens_per_s": len(seq.tokens) / max(t2 - t1, 1e-9)}

@@ -1,0 +1,76 @@
+"""The port stands alone: no file of ``src/repro_torch/`` and not
+``chip_smoke.py`` imports ``jax`` or anything of the JAX package
+``repro`` (the port keeps its own copies of the host-side modules it
+needs).  An AST scan, so a lazy import inside a function counts too."""
+import ast
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def _forbidden(module: str) -> bool:
+    top = module.split(".")[0]
+    return top in ("jax", "jaxlib", "repro")
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_neither_jax_nor_repro(path):
+    bad = [m for m in _imported_modules(path) if _forbidden(m)]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_scan_sees_the_whole_port():
+    assert (ROOT / "chip_smoke.py").exists()
+    names = {p.name for p in FILES}
+    assert {"engine.py", "mux_server.py", "ops.py", "transformer.py"} <= names
+    assert not _forbidden("repro_torch.kernels")
+    assert _forbidden("repro.kernels") and _forbidden("jax.numpy")
+
+
+def test_entry_points_default_to_cuda_and_refuse_without_it(monkeypatch):
+    """With no device given, every entry point asks for CUDA; with no
+    CUDA present it raises instead of running on the CPU."""
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.multiplexer import init_mux, init_token_backbone
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving.engine import Engine, ServeConfig
+    from repro_torch.serving.mux_server import MuxServer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_smoke_config("olmo-1b").with_(num_layers=1, d_model=32,
+                                            d_ff=32, vocab_size=16,
+                                            num_heads=2, num_kv_heads=2,
+                                            head_dim=16)
+    params = tf.init_params(cfg, device="cpu")
+    backbone = init_token_backbone(meta_dim=4, vocab_size=16, d_model=8,
+                                   num_layers=1, device="cpu")
+    mux = init_mux(backbone=backbone, model_names=["a"], costs={"a": 1.0},
+                   meta_dim=4, proj_dim=2, device="cpu")
+    calls = [
+        lambda: tf.init_params(cfg),
+        lambda: tf.init_caches(cfg, num_pages=2, page_size=4),
+        lambda: Engine(cfg, params, ServeConfig()),
+        lambda: init_token_backbone(meta_dim=4, vocab_size=16),
+        lambda: init_mux(backbone=backbone, model_names=["a"],
+                         costs={"a": 1.0}, meta_dim=4, proj_dim=2),
+        lambda: MuxServer(mux, [1.0]),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
