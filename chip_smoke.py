@@ -3,7 +3,7 @@
 NVIDIA H100.
 
     python3 chip_smoke.py            # from the repository root
-    python3 chip_smoke.py --profile  # + one profiled decode step per engine
+    python3 chip_smoke.py --profile  # + profiled decode steps and prefills
 
 Phases, each of which must pass:
 
@@ -16,34 +16,63 @@ Phases, each of which must pass:
    variants, mixed lengths with a length-0 row, and the combined
    (B, M+1) operand against separate operands (bitwise), then at the
    served shapes; K2 ``mux_score`` at the served shape and the
-   reference sweep shapes.  TF32 is switched off for the plain
-   versions (``torch.backends.cuda.matmul.allow_tf32 = False``,
+   reference sweep shapes; K3 ``flash_attention`` on the JAX sweep's
+   five shapes, GQA g in {1, 2, 4, 8} with S and T off the tiles, hd
+   256, windows and chunks with fully masked rows in the first live
+   tile (each in fp32 and bf16), and the served prefill shapes (B=1,
+   S=T in {128, 448, 1024}, H=K in {16, 32}, hd 128, bf16).  TF32 is
+   switched off for the plain versions
+   (``torch.backends.cuda.matmul.allow_tf32 = False``,
    ``torch.backends.cudnn.allow_tf32 = False``), so they run in full
    fp32.  Tolerances: 2e-2 with bf16 operands or outputs, 1e-4 for
-   fp32 paged attention, 1e-5 for the fp32 mux head.  Each kernel is
-   timed at the served shape (CUDA events; K/V copies rotated so the
-   50 MB L2 never holds the next call's pages) beside its plain
-   version and its bound.  A tiny model's teacher-forced decode
-   through the kernel is held against the same model on the CPU.
-3. The served path at full width: olmo-1b and codeqwen1.5-7b at their
-   published configs (depth uncut) with random bf16 weights from a
-   seeded ``torch.Generator``, bf16 page pools (page 64; 512 and 256
-   pages), ``max_len`` 2048, decode batch 8, behind a token-probe mux
-   (d_model 128, 2 layers, meta_dim 32, vocab 50304, cost = 2 x params)
-   whose threshold is set from the probe weights so both models get
-   traffic.  8 prompts of 128-1024 tokens (two share a 256-token
-   prefix) go through ``MuxServer.probe`` -> ``prefill_into_pages`` in
-   the selected engine -> ``decode_step_batch`` until each has 32
-   tokens.  Checks: every logit sampled is finite, each pool drains to
-   zero pages, ``paged_attention`` launched num_layers x decode steps
-   times on each engine, ``mux_score`` at least once.
+   fp32 paged and flash attention, 1e-5 for the fp32 mux head.  Each
+   kernel is timed at the served shape (CUDA events; input copies
+   rotated so the 50 MB L2 never holds the next call's operands)
+   beside its plain version and its bound; K3 also beside
+   ``scaled_dot_product_attention`` (timed only, never on the port's
+   path).  A tiny fp32 model's prefill (through K3) and teacher-forced
+   decode (through K1) on the card are held against the same model on
+   the CPU.
+3. The direct served path at full width: olmo-1b and codeqwen1.5-7b at
+   their published configs (depth uncut) with random bf16 weights
+   from a seeded ``torch.Generator``, bf16 page pools (page 64; 512
+   and 256 pages), ``max_len`` 2048, decode batch 8, behind a
+   token-probe mux (d_model 128, 2 layers, meta_dim 32, vocab 50304,
+   cost = 2 x params) whose threshold is set from the probe weights so
+   both models get traffic.  8 prompts of 128-1024 tokens (two share a
+   256-token prefix) go through ``MuxServer.probe`` ->
+   ``prefill_into_pages`` in the selected engine ->
+   ``decode_step_batch`` until each has 32 tokens.  Checks: each pool
+   drains to zero pages, ``paged_attention`` launched num_layers x
+   decode steps times on each engine, ``flash_attention`` num_layers x
+   whole-prompt prefills, ``mux_score`` at least once.
+4. The scheduler path on the same zoo, the serving entry point users
+   call: ``PagedLLMScheduler`` over one ``InProcessBackend`` per
+   engine, ``select_fn`` = the mux probe, whole-prompt prefill.  16
+   prompts of 128-1024 tokens (four share a 256-token prefix) arrive
+   open-loop at Poisson times (4 requests/s, ``traffic.arrival_times``)
+   and ask for 32 greedy tokens each.  Checks: every request completes
+   as its prompt + 32 tokens, ``flash_attention`` launched num_layers x
+   whole-prompt prefills and ``paged_attention`` num_layers x decode
+   steps (from the engines' own counters), ``mux_score`` once per
+   request, a decode batch mixed requests admitted at different times,
+   and each pool drains to zero pages.
+5. The scheduler path again on the same prompts and arrival times, with
+   ``select_fn`` = ``MuxServer.probe_weights`` + ``select`` and no
+   prewarm, so every prefill runs in the scheduler's own admission on
+   the backend's executor thread.  The checks of phase 4, and besides:
+   no logit-cache hit, and every whole-prompt prefill (so every
+   ``flash_attention`` launch) made on an executor thread.  Every logit
+   sampled in phases 3-5 is finite.
 
-Output: progress lines, then the ``{"kernels": [...]}`` JSON line, a
-JSON line of per-request prefill ms and per-engine decode tokens/s,
-the card's name and power limit (nvidia-smi), and as the last line
-``{"ok": true, "device": {...}}``.  Any failed check raises: the run
-exits non-zero without that last line.  It needs one CUDA card and a
-checkout of the repository (it imports ``src/repro_torch``).
+Output: progress lines, then the ``{"kernels": [...]}`` JSON line (the
+launches are phase 4's), a JSON line of the direct path's per-request
+admission ms and decode tokens/s and, for phases 4 and 5, the
+launches, TTFT p50/p99 and decode tokens/s per model, the card's name
+and power limit (nvidia-smi), and as the last line ``{"ok": true,
+"device": {...}}``.  Any failed check raises: the run exits non-zero without
+that last line.  It needs one CUDA card and a checkout of the
+repository (it imports ``src/repro_torch``).
 """
 from __future__ import annotations
 
@@ -62,6 +91,7 @@ FP32_FLOPS = 67e12               # fp32 outside the tensor cores
 SEED = 0
 BF16_TOL = 2e-2
 F32_PAGED_TOL = 1e-4
+F32_FLASH_TOL = 1e-4
 F32_MUX_TOL = 1e-5
 MODEL_TOL = 1e-3                 # fp32 logits, card vs CPU
 
@@ -299,12 +329,125 @@ def check_mux_score(dev) -> dict:
             "max_abs_err": worst}
 
 
+def flash_inputs(gen, dev, b, s, t, h, kk, hd, vd, dtype):
+    """Random q (B, S, H, hd), k (B, T, K, hd), v (B, T, K, vd) drawn on
+    the CPU from ``gen``."""
+    import torch
+    return [torch.randn(shape, generator=gen).to(dtype).to(dev)
+            for shape in ((b, s, h, hd), (b, t, kk, hd), (b, t, kk, vd))]
+
+
+# (b, s, t, h, kk, hd, vd, window, chunk, cap)
+FLASH_CASES = {
+    # tests/test_kernels.py's sweep
+    "sweep gqa": (2, 128, 128, 4, 2, 64, 64, None, None, None),
+    "sweep window": (1, 256, 256, 4, 4, 64, 64, 64, None, None),
+    "sweep mqa+cap": (2, 96, 96, 4, 1, 32, 32, None, None, 50.0),
+    "sweep chunk": (1, 256, 256, 8, 2, 64, 64, None, 96, None),
+    "sweep kv>q vd<hd": (2, 64, 192, 4, 2, 64, 32, None, None, None),
+    # GQA groups with S and T off the 64-row / 32-key tiles
+    "g=1 off-tile": (1, 100, 100, 16, 16, 128, 128, None, None, None),
+    "g=2 off-tile": (2, 77, 150, 16, 8, 128, 128, None, None, None),
+    "g=4 off-tile": (1, 130, 130, 16, 4, 128, 128, None, None, None),
+    "g=8 off-tile": (1, 201, 233, 16, 2, 128, 96, None, None, None),
+    "g=8 hd=256": (1, 70, 70, 8, 1, 256, 256, None, None, None),
+    # rows fully masked inside the first live tile
+    "window masked rows": (1, 128, 128, 4, 1, 32, 32, 8, None, None),
+    "chunk masked rows": (1, 200, 200, 4, 2, 64, 64, None, 40, None),
+}
+# the page-padded prompt lengths of the served trace, B=1, bf16
+FLASH_SERVED = [(1, s, s, h, h, 128, 128, None, None, None)
+                for h in (16, 32) for s in (128, 448, 1024)]
+
+
+def check_flash_attention(dev) -> float:
+    """K3 against its plain version over the cases above (fp32 and
+    bf16) and the served shapes (bf16); returns the max error."""
+    import torch
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_attention_plain)
+    gen = torch.Generator().manual_seed(SEED)
+    cases = [(n, c, d) for n, c in FLASH_CASES.items()
+             for d in (torch.float32, torch.bfloat16)]
+    cases += [(f"served H={c[3]} S={c[1]}", c, torch.bfloat16)
+              for c in FLASH_SERVED]
+    worst = 0.0
+    for name, case, dtype in cases:
+        b, s, t, h, kk, hd, vd, window, chunk, cap = case
+        q, k, v = flash_inputs(gen, dev, b, s, t, h, kk, hd, vd, dtype)
+        kw = dict(causal=True, window=window, chunk=chunk, logit_cap=cap)
+        got = flash_attention_cuda(q, k, v, **kw)
+        torch.cuda.synchronize()
+        want = flash_attention_plain(q, k, v, **kw)
+        err = (got.float() - want.float()).abs().max().item()
+        tol = F32_FLASH_TOL if dtype == torch.float32 else BF16_TOL
+        dname = "float32" if dtype == torch.float32 else "bf16"
+        log(f"K3 {name:20s} {dname:7s} max_err={err:.3e} tol={tol:g}")
+        check(err <= tol, f"K3 {name} {dname}: max_err {err:.3e} > {tol:g}")
+        worst = max(worst, err)
+    return worst
+
+
+def flash_bound_ms(s, t, h, kk, hd, vd, elem) -> tuple:
+    """(bound ms, bound_by) of one causal K3 call with S == T and no
+    window: q, k, v and out moved once over HBM bandwidth; 2*(hd+vd)
+    FLOPs per (query head, visible key) — the live causal half,
+    S*(S+1)/2 pairs — over the bf16 tensor-core rate."""
+    byts = elem * (s * h * hd + t * kk * (hd + vd) + s * h * vd)
+    flops = 2 * (hd + vd) * h * (s * (s + 1) // 2)
+    t_bytes = byts / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def time_flash_attention(dev) -> dict:
+    """K3 at the largest served shape (codeqwen1.5-7b, S = T = 1024,
+    H = K = 32, hd = 128, bf16) beside its plain version, its bound and
+    one library call (``scaled_dot_product_attention(is_causal=True)``,
+    where S == T makes its bottom-right causal rule equal the kernel's
+    top-left one; timed here only, never on the port's path), and the
+    model's ``blocked_attention`` on the card (what the whole-prompt
+    prefill ran before K3; not a plain version of the kernel, which
+    scales q in fp32).  Three input copies (100 MB) rotate so the L2
+    does not hold the next call's operands."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_attention_plain)
+    from repro_torch.models.attention import blocked_attention
+    b, s, t, h, kk, hd, vd = 1, 1024, 1024, 32, 32, 128, 128
+    gen = torch.Generator().manual_seed(SEED + 7)
+    copies = [flash_inputs(gen, dev, b, s, t, h, kk, hd, vd, torch.bfloat16)
+              for _ in range(3)]
+    n = len(copies)
+    ms = time_cuda(lambda i: flash_attention_cuda(*copies[i % n]), iters=50)
+    plain_ms = time_cuda(lambda i: flash_attention_plain(*copies[i % n]),
+                         iters=10)
+    blocked_ms = time_cuda(lambda i: blocked_attention(*copies[i % n]),
+                           iters=10)
+    heads_first = [[x.transpose(1, 2) for x in c] for c in copies]
+    lib_ms = time_cuda(lambda i: F.scaled_dot_product_attention(
+        *heads_first[i % n], is_causal=True), iters=50)
+    lib = F.scaled_dot_product_attention(*heads_first[0], is_causal=True)
+    lib_err = (lib.transpose(1, 2).float()
+               - flash_attention_cuda(*copies[0]).float()).abs().max().item()
+    bound, bound_by = flash_bound_ms(s, t, h, kk, hd, vd, 2)
+    log(f"K3 time at B=1 S=T=1024 H=32 hd=128 bf16: kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, blocked_attention {blocked_ms:.4f} ms, "
+        f"library (sdpa) {lib_ms:.4f} ms (|sdpa - kernel| {lib_err:.3e}), "
+        f"bound {bound:.4f} ms ({bound_by})")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": bound, "bound_by": bound_by}
+
+
 def check_model_against_cpu(dev) -> float:
-    """A tiny fp32 model: prefill + teacher-forced paged decode through
-    the CUDA kernel on the card, against the same weights on the CPU
-    (plain path).  Returns the max logit difference."""
+    """A tiny fp32 model: prefill (through K3 on the card) + teacher-
+    forced paged decode (through K1) on the card, against the same
+    weights on the CPU (plain path).  Returns the max logit
+    difference."""
     import torch
     from repro_torch.configs.base import LayerSpec, ModelConfig
+    from repro_torch.kernels import ops
     from repro_torch.models import transformer as tf
     cfg = ModelConfig(name="tiny-check", arch_type="dense", num_layers=2,
                       d_model=64, d_ff=128, vocab_size=128, num_heads=4,
@@ -320,6 +463,7 @@ def check_model_against_cpu(dev) -> float:
     bt = torch.arange(1, 11, dtype=torch.int32).reshape(2, 5)
     runs = {}
     for p, d in ((params, torch.device("cpu")), (gparams, dev)):
+        ops.reset_launches()
         caches = tf.init_caches(cfg, num_pages=11, page_size=4, device=d)
         logits = [tf.prefill_paged(p, cfg, toks[:, :8].to(d), caches,
                                    bt.to(d))[0]]
@@ -331,13 +475,20 @@ def check_model_against_cpu(dev) -> float:
         runs[d.type] = torch.cat([x.float().cpu() for x in logits], 1)
     worst = (runs["cpu"] - runs["cuda"]).abs().max().item()
     log(f"tiny model on the card vs CPU: max logit diff {worst:.3e} "
-        f"tol={MODEL_TOL:g}")
+        f"tol={MODEL_TOL:g}; card launches {ops.launches}")
     check(worst <= MODEL_TOL, f"tiny model card vs CPU: {worst:.3e}")
+    check(ops.launches["flash_attention"] == cfg.num_layers,
+          f"tiny model: flash_attention launched "
+          f"{ops.launches['flash_attention']} times for one prefill of "
+          f"{cfg.num_layers} layers")
+    check(ops.launches["paged_attention"] == cfg.num_layers * 12,
+          f"tiny model: paged_attention launched "
+          f"{ops.launches['paged_attention']} times for 12 decode steps")
     return worst
 
 
 # ---------------------------------------------------------------------------
-# phase 3: the served path
+# phases 3 and 4: the served paths
 # ---------------------------------------------------------------------------
 
 def make_prompts(rng, vocab: int):
@@ -351,16 +502,27 @@ def make_prompts(rng, vocab: int):
     return prompts
 
 
-def serve(dev, cfgs, num_pages, *, new_tokens=32, max_len=2048,
-          decode_batch=8, vocab=50_304, dtype=None, on_logits=None,
-          profile_step=None):
-    """Build the zoo + mux on ``dev`` and serve 8 prompts; returns the
-    run's statistics.  ``on_logits`` sees every logits tensor an engine
-    samples from; ``profile_step`` (an index) runs that decode step of
-    each engine under ``torch.profiler``."""
+def make_sched_prompts(rng, vocab: int, n: int = 16):
+    """``n`` prompts of 128-1024 tokens; prompts 2, 6, 9 and 13 share a
+    256-token prefix."""
+    lengths = rng.integers(128, 1025, n)
+    shared = (2, 6, 9, 13)
+    lengths[list(shared)] = np.maximum(lengths[list(shared)], 320)
+    prompts = [rng.integers(0, vocab, int(k)).astype(np.int32)
+               for k in lengths]
+    for i in shared[1:]:
+        prompts[i][:256] = prompts[shared[0]][:256]
+    return prompts
+
+
+def build_zoo(dev, cfgs, num_pages, calib, *, max_len=2048, decode_batch=8,
+              vocab=50_304, dtype=None, on_logits=None) -> dict:
+    """The zoo (one paged Engine per config, random weights from seeded
+    generators) and a token-probe mux whose threshold splits the
+    ``calib`` prompts between the models.  ``on_logits`` sees every
+    logits tensor an engine samples from."""
     import torch
     from repro_torch.core.multiplexer import init_mux, init_token_backbone
-    from repro_torch.kernels import ops
     from repro_torch.models import transformer as tf
     from repro_torch.serving.engine import Engine, ServeConfig
     from repro_torch.serving.mux_server import MuxServer, MuxServerConfig
@@ -373,8 +535,6 @@ def serve(dev, cfgs, num_pages, *, new_tokens=32, max_len=2048,
         n_params = sum(t.numel() for t in _leaves(params))
         costs.append(2.0 * n_params)
         eng = Engine(cfg, params, ServeConfig(max_len=max_len), device=dev)
-        eng.init_paged(num_pages=pages, page_size=64,
-                       decode_batch=decode_batch, logit_cache=8)
         if on_logits is not None:
             eng._sample_rows = _watch(eng._sample_rows, on_logits)
         engines.append(eng)
@@ -386,21 +546,39 @@ def serve(dev, cfgs, num_pages, *, new_tokens=32, max_len=2048,
     mux = init_mux(gen, backbone=backbone, model_names=names,
                    costs=dict(zip(names, costs)), meta_dim=32, proj_dim=16,
                    device=dev)
-    if dev.type == "cuda":
-        torch.cuda.synchronize()
-    setup_s = time.perf_counter() - t0
-
-    prompts = make_prompts(np.random.default_rng(SEED), vocab)
-    probe = np.stack([p[:64] for p in prompts])
+    probe = np.stack([p[:64] for p in calib])
     w = MuxServer(mux, costs, device=dev).probe_weights(probe)[:, 0]
-    w = w.cpu().numpy()
-    uniq = np.unique(w)
+    uniq = np.unique(w.cpu().numpy())
     check(len(uniq) >= 2, "the probe gives every prompt the same weight")
     k = len(uniq) // 2
     threshold = float((uniq[k - 1] + uniq[k]) / 2)
     server = MuxServer(mux, costs, MuxServerConfig(threshold=threshold),
                        engines=engines, device=dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return {"engines": engines, "costs": costs, "server": server,
+            "num_pages": list(num_pages), "decode_batch": decode_batch,
+            "threshold": threshold, "setup_s": time.perf_counter() - t0}
 
+
+def init_pools(zoo) -> None:
+    """Fresh page pools (and engine counters) for a served run."""
+    for eng, pages in zip(zoo["engines"], zoo["num_pages"]):
+        eng.init_paged(num_pages=pages, page_size=64,
+                       decode_batch=zoo["decode_batch"], logit_cache=8)
+
+
+def serve(dev, zoo, prompts, *, new_tokens=32, profile_step=None):
+    """The direct path: each prompt through ``MuxServer.probe`` ->
+    ``prefill_into_pages`` in the selected engine, then each engine's
+    ``decode_step_batch`` loop until every request has ``new_tokens``.
+    ``profile_step`` (an index) runs that decode step of each engine
+    under ``torch.profiler``.  Returns the run's statistics."""
+    import torch
+    from repro_torch.kernels import ops
+
+    engines, server = zoo["engines"], zoo["server"]
+    init_pools(zoo)
     ops.reset_launches()
     seqs = [[] for _ in engines]
     prefill_ms = []
@@ -452,7 +630,9 @@ def serve(dev, cfgs, num_pages, *, new_tokens=32, max_len=2048,
             "cow": eng.cow_count,
             "prompt_tokens_padded": padded,
             "prefill_tokens_computed": eng.prefill_tokens_computed,
-            "logit_cache_hits": eng.logit_cache_hits, "profile": prof})
+            "logit_cache_hits": eng.logit_cache_hits,
+            "whole_prompt_prefills": eng.whole_prompt_prefills,
+            "profile": prof})
         for s in running:
             check(len(s.tokens) == new_tokens,
                   f"{eng.cfg.name}: a request made {len(s.tokens)} tokens")
@@ -460,10 +640,105 @@ def serve(dev, cfgs, num_pages, *, new_tokens=32, max_len=2048,
         eng.shed_prewarmed()
         per_engine[-1]["pages_in_use_after"] = eng.pool.pages_in_use
     launches = dict(ops.launches)
-    return {"setup_s": setup_s, "threshold": threshold,
-            "prefill_ms": prefill_ms, "engines": per_engine,
+    return {"prefill_ms": prefill_ms, "engines": per_engine,
             "launches": launches,
             "split": {e["model"]: e["requests"] for e in per_engine}}
+
+
+def serve_scheduler(dev, zoo, prompts, *, new_tokens=32, rate=4.0,
+                    prewarm=True) -> dict:
+    """The scheduler path, the serving entry point users call:
+    ``PagedLLMScheduler`` over one ``InProcessBackend`` per engine,
+    whole-prompt prefill (``prefill_chunk_pages=0``).  ``select_fn`` is
+    the mux: with ``prewarm`` it is ``MuxServer.probe``, which runs the
+    selected engine's prefill inside ``submit`` on the event loop, so
+    the admission that follows is a logit-cache hit; without it,
+    ``probe_weights`` + ``select`` only, so every prefill runs in the
+    admission on the backend's executor thread.  The prompts arrive
+    open-loop at Poisson times (``traffic.arrival_times``, seed
+    ``SEED``), each asking for ``new_tokens`` greedy tokens.  Returns
+    the outputs, the launch counts of the run, the whole-prompt
+    prefills made off the main thread and the scheduler's metrics."""
+    import asyncio
+    import threading
+
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.serving.scheduler import (PagedLLMConfig,
+                                               PagedLLMScheduler,
+                                               TrafficConfig, arrival_times,
+                                               replay)
+
+    engines, server = zoo["engines"], zoo["server"]
+    init_pools(zoo)
+    steps = [0] * len(engines)
+    executor_prefills = [0] * len(engines)
+    for m, eng in enumerate(engines):       # count each engine's steps
+        def counted(seqs, _step=eng.decode_step_batch, _m=m):
+            steps[_m] += 1
+            return _step(seqs)
+
+        def prefill(seq, *, chunk_tokens=None, _chunk=eng.prefill_chunk,
+                    _eng=eng, _m=m):
+            before = _eng.whole_prompt_prefills
+            out = _chunk(seq, chunk_tokens=chunk_tokens)
+            if threading.current_thread() is not threading.main_thread():
+                executor_prefills[_m] += _eng.whole_prompt_prefills - before
+            return out
+        eng.decode_step_batch = counted
+        eng.prefill_chunk = prefill
+
+    def select(x) -> int:
+        x = np.asarray(x)[None]
+        if prewarm:
+            return int(server.probe(x)["assign"][0])
+        return int(server.select(server.probe_weights(x))[0])
+
+    sched = PagedLLMScheduler(
+        engines, PagedLLMConfig(max_new_tokens=new_tokens,
+                                prefill_chunk_pages=0),
+        select_fn=select, costs=zoo["costs"])
+    times = arrival_times(TrafficConfig(rate=rate, num_requests=len(prompts),
+                                        seed=SEED))
+
+    async def run():
+        async with sched:
+            futs = await replay(sched.submit, prompts, times)
+            return await asyncio.gather(*futs)
+
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    outs = asyncio.run(run())
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = dict(ops.launches)
+    snap = sched.snapshot()
+    per_engine = []
+    for m, eng in enumerate(engines):
+        del eng.decode_step_batch           # the class's methods again
+        del eng.prefill_chunk
+        busy = sched.metrics.per_model_busy_s[m]
+        done = sched.metrics.per_model_completed[m]
+        tokens = done * (new_tokens - 1)    # the first comes from prefill
+        eng.shed_prewarmed()                # a cache, not a request
+        per_engine.append({
+            "model": eng.cfg.name, "requests": done, "decode_steps": steps[m],
+            "whole_prompt_prefills": eng.whole_prompt_prefills,
+            "executor_whole_prompt_prefills": executor_prefills[m],
+            "logit_cache_hits": eng.logit_cache_hits,
+            "cow": eng.cow_count,
+            "ttft_p50_ms": snap["ttft_p50_ms_by_model"][m],
+            "ttft_p99_ms": snap["ttft_p99_ms_by_model"][m],
+            "decode_tokens_per_s": tokens / busy if busy > 0 else 0.0,
+            "pages_in_use_after": eng.pool.pages_in_use})
+    return {"outs": outs, "launches": launches, "engines": per_engine,
+            "prewarm": prewarm, "wall_s": wall_s, "completed": snap["completed"],
+            "failed": snap["failed"],
+            "mixed_admission_batches": snap["mixed_admission_batches"],
+            "decode_batches": snap["decode_batches"],
+            "ttft_p50_ms": snap["ttft_p50_ms"],
+            "ttft_p99_ms": snap["ttft_p99_ms"]}
 
 
 def profile_decode_step(eng, active) -> dict:
@@ -496,6 +771,47 @@ def profile_decode_step(eng, active) -> dict:
                     for ms, n, k in rows[:8]]}
 
 
+def profile_prefill(eng, rng, n_tokens: int, repeats: int = 3) -> dict:
+    """Where a whole-prompt prefill's time goes: ``repeats`` unprofiled
+    admissions of fresh random ``n_tokens`` prompts (no logit-cache hit,
+    no shared prefix, so each takes the flash-attention branch; host
+    clock around a synchronised call), then one more under
+    torch.profiler for device time by kernel.  The idle share is taken
+    against the median unprofiled admission."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    vocab = eng.cfg.vocab_size
+
+    def admit():
+        seq = eng.prefill_into_pages(
+            rng.integers(0, vocab, n_tokens).astype(np.int32),
+            max_new_tokens=1)
+        torch.cuda.synchronize()
+        eng.pool.release(seq)
+
+    wall = []
+    for _ in range(repeats):
+        t = time.perf_counter()
+        admit()
+        wall.append((time.perf_counter() - t) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        admit()
+    rows = [(e.device_time_total / 1e3, e.count, e.key[:80])
+            for e in prof.key_averages()
+            if e.device_type != DeviceType.CPU and e.device_time_total > 0]
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    k3 = sum(r[0] for r in rows if "flash_attention_kernel" in r[2])
+    step = float(np.median(wall))
+    return {"model": eng.cfg.name, "prompt_tokens": n_tokens,
+            "unprofiled_ms": wall, "device_busy_ms": busy,
+            "flash_attention_ms": k3, "idle_share": 1.0 - busy / step,
+            "top": [{"ms": ms, "calls": n, "name": k}
+                    for ms, n, k in rows[:6]]}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -519,6 +835,7 @@ def _watch(sample_rows, on_logits):
 
 def check_served(stats, cfgs) -> None:
     by_model = {e["model"]: e for e in stats["engines"]}
+    k3_want = 0
     for cfg in cfgs:
         e = by_model[cfg.name]
         check(e["requests"] > 0, f"{cfg.name} received no request")
@@ -529,11 +846,63 @@ def check_served(stats, cfgs) -> None:
               f"{cfg.name}: paged_attention launched "
               f"{e['paged_attention_launches']} times, expected "
               f"{cfg.num_layers} layers x {e['decode_steps']} steps = {want}")
+        k3_want += cfg.num_layers * e["whole_prompt_prefills"]
+    check(stats["launches"]["flash_attention"] == k3_want > 0,
+          f"direct path: flash_attention launched "
+          f"{stats['launches']['flash_attention']} times, expected "
+          f"layers x whole-prompt prefills = {k3_want}")
     check(stats["launches"]["mux_score"] >= 1, "mux_score never launched")
     check(any(e["cow"] > 0 for e in stats["engines"]),
           "no copy-on-write ran")
     check(any(e["prefill_tokens_computed"] < e["prompt_tokens_padded"]
               for e in stats["engines"]), "no prefix sharing ran")
+
+
+def check_scheduler(run, prompts, cfgs, new_tokens) -> None:
+    """Checks of a ``serve_scheduler`` run; without the prewarm, every
+    whole-prompt prefill must have run in an admission on a backend's
+    executor thread and no admission may hit the logit cache."""
+    tag = "scheduler" if run["prewarm"] else "scheduler (no prewarm)"
+    check(run["completed"] == len(prompts) and run["failed"] == 0,
+          f"{tag}: {run['completed']} of {len(prompts)} requests "
+          f"completed, {run['failed']} failed")
+    for prompt, out in zip(prompts, run["outs"]):
+        out = np.asarray(out)
+        check(out.shape == (len(prompt) + new_tokens,)
+              and bool((out[:len(prompt)] == prompt).all()),
+              f"{tag}: an output of shape {out.shape} is not its "
+              f"prompt ({len(prompt)}) + {new_tokens} tokens")
+    by_model = {e["model"]: e for e in run["engines"]}
+    k1_want = k3_want = 0
+    for cfg in cfgs:
+        e = by_model[cfg.name]
+        check(e["pages_in_use_after"] == 0,
+              f"{tag}: {cfg.name} holds {e['pages_in_use_after']} pages "
+              f"after the run")
+        if not run["prewarm"]:
+            check(e["logit_cache_hits"] == 0 and e[
+                "executor_whole_prompt_prefills"] == e[
+                "whole_prompt_prefills"],
+                  f"{tag}: {cfg.name} made {e['whole_prompt_prefills']} "
+                  f"whole-prompt prefills, "
+                  f"{e['executor_whole_prompt_prefills']} of them on an "
+                  f"executor thread, with {e['logit_cache_hits']} "
+                  f"logit-cache hits")
+        k1_want += cfg.num_layers * e["decode_steps"]
+        k3_want += cfg.num_layers * e["whole_prompt_prefills"]
+    got = run["launches"]
+    check(got["flash_attention"] == k3_want > 0,
+          f"{tag}: flash_attention launched {got['flash_attention']} "
+          f"times, expected layers x whole-prompt prefills = {k3_want}")
+    check(got["paged_attention"] == k1_want > 0,
+          f"{tag}: paged_attention launched {got['paged_attention']} "
+          f"times, expected layers x decode steps = {k1_want}")
+    check(got["mux_score"] == len(prompts),
+          f"{tag}: mux_score launched {got['mux_score']} times for "
+          f"{len(prompts)} requests")
+    check(run["mixed_admission_batches"] > 0,
+          f"{tag}: no decode batch mixed requests admitted at "
+          "different times")
 
 
 # ---------------------------------------------------------------------------
@@ -543,8 +912,9 @@ def main(argv) -> int:
     import torch
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also run decode step 2 of each engine under "
-                         "torch.profiler and print its breakdown")
+                    help="also run decode step 2 of each engine and one "
+                         "1024-token whole-prompt prefill per engine "
+                         "under torch.profiler and print the breakdowns")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -576,6 +946,8 @@ def main(argv) -> int:
     k1_err = check_paged_attention(dev)
     k1 = time_paged_attention(dev)
     k2 = check_mux_score(dev)
+    k3_err = check_flash_attention(dev)
+    k3 = time_flash_attention(dev)
     check_model_against_cpu(dev)
 
     cfgs = [get_config("olmo-1b"), get_config("codeqwen1.5-7b")]
@@ -585,39 +957,92 @@ def main(argv) -> int:
         finite["seen"] += 1
         finite["bad"] += int(not bool(torch.isfinite(x).all()))
 
-    stats = serve(dev, cfgs, [512, 256], dtype=torch.bfloat16,
-                  on_logits=on_logits,
+    new_tokens = 32
+    prompts = make_prompts(np.random.default_rng(SEED), 50_304)
+    sched_prompts = make_sched_prompts(np.random.default_rng(SEED + 1),
+                                       50_304)
+    zoo = build_zoo(dev, cfgs, [512, 256], prompts + sched_prompts,
+                    dtype=torch.bfloat16, on_logits=on_logits)
+    log(f"zoo: setup {zoo['setup_s']:.1f} s, threshold "
+        f"{zoo['threshold']:.6f}")
+
+    # phase 3: the direct path (probe -> prefill_into_pages -> decode)
+    stats = serve(dev, zoo, prompts, new_tokens=new_tokens,
                   profile_step=2 if args.profile else None)
-    log(f"served: setup {stats['setup_s']:.1f} s, threshold "
-        f"{stats['threshold']:.6f}, mux split {stats['split']}")
+    log(f"direct path: mux split {stats['split']}, launches "
+        f"{stats['launches']}")
     for e in stats["engines"]:
         log(f"  {json.dumps(e)}")
+    check_served(stats, cfgs)
+    if args.profile:
+        rng = np.random.default_rng(SEED + 2)
+        for eng in zoo["engines"]:
+            prof = profile_prefill(eng, rng, 1024)
+            log(f"  prefill profile {json.dumps(prof)}")
+
+    # phase 4: the scheduler path, the main path of this run; phase 5:
+    # the same without the probe's prewarm, so admissions prefill on
+    # the backends' executor threads
+    runs = {}
+    for phase, prewarm in ((4, True), (5, False)):
+        run = serve_scheduler(dev, zoo, sched_prompts, new_tokens=new_tokens,
+                              prewarm=prewarm)
+        log(f"phase {phase}, scheduler path (prewarm {prewarm}): "
+            f"{run['completed']} requests in {run['wall_s']:.2f} s, "
+            f"{run['decode_batches']} decode batches "
+            f"({run['mixed_admission_batches']} mixed), launches "
+            f"{run['launches']}")
+        for e in run["engines"]:
+            log(f"  {json.dumps(e)}")
+        check_scheduler(run, sched_prompts, cfgs, new_tokens)
+        runs[prewarm] = run
+    run = runs[True]
     check(finite["seen"] > 0 and finite["bad"] == 0,
           f"{finite['bad']} of {finite['seen']} logits tensors not finite")
-    check_served(stats, cfgs)
 
+    launches = run["launches"]
     kernels = [
         {"name": "paged_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/paged_attention.cu",
          "replaces": "src/repro/kernels/paged_attention.py:289",
-         "launches": stats["launches"]["paged_attention"],
+         "launches": launches["paged_attention"],
          "max_abs_err": max(k1_err, k1["served_err"]), "ms": k1["ms"],
          "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
          "bound_by": k1["bound_by"], "library_ms": None},
         {"name": "mux_score", "route": "cuda",
          "source": "src/repro_torch/csrc/mux_score.cu",
          "replaces": "src/repro/kernels/mux_score.py:47",
-         "launches": stats["launches"]["mux_score"],
+         "launches": launches["mux_score"],
          "max_abs_err": k2["max_abs_err"], "ms": k2["ms"],
          "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
          "bound_by": k2["bound_by"], "library_ms": None},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:157",
+         "launches": launches["flash_attention"],
+         "max_abs_err": k3_err, "ms": k3["ms"],
+         "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
+         "bound_by": k3["bound_by"], "library_ms": k3["library_ms"]},
     ]
-    # plain_ms is the plain PyTorch version's time: no yardstick of speed
+    # launches: the scheduler path's run; plain_ms is the plain PyTorch
+    # version's time, no yardstick of speed
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({
-        "prefill_ms_per_request": stats["prefill_ms"],
-        "decode_tokens_per_s": {e["model"]: e["decode_tokens_per_s"]
-                                for e in stats["engines"]}}), flush=True)
+        "direct": {
+            "launches": stats["launches"],
+            "prefill_ms_per_request": stats["prefill_ms"],
+            "decode_tokens_per_s": {e["model"]: e["decode_tokens_per_s"]
+                                    for e in stats["engines"]}},
+        **{name: {
+            "requests": r["completed"], "wall_s": r["wall_s"],
+            "launches": r["launches"],
+            "ttft_p50_ms": r["ttft_p50_ms"], "ttft_p99_ms": r["ttft_p99_ms"],
+            "by_model": {e["model"]: {k: e[k] for k in (
+                "requests", "ttft_p50_ms", "ttft_p99_ms",
+                "decode_tokens_per_s")} for e in r["engines"]}}
+           for name, r in (("scheduler", runs[True]),
+                           ("scheduler_no_prewarm", runs[False]))}}),
+        flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -1,7 +1,9 @@
-"""Dispatch by the tensors' device: a CPU tensor gets the kernel's plain
-PyTorch version, a CUDA tensor gets the hand-written kernel — or an
-exception.  There is no switch and no fallback: a CUDA request that
-the kernel cannot serve raises instead of computing elsewhere.
+"""Dispatch by the tensors' device: a CPU tensor gets a plain PyTorch
+path (the kernel's plain version; for whole-prompt attention the
+model's ``blocked_attention``, as the JAX dispatcher runs off the
+TPU), a CUDA tensor gets the hand-written kernel — or an exception.
+There is no switch and no fallback: a CUDA request that the kernel
+cannot serve raises instead of computing elsewhere.
 
 ``launches`` counts, per kernel, the calls that launched it (the
 plain path does not count), so a run can show that its main path went
@@ -13,16 +15,39 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.mux_score import mux_score_cuda
 from repro_torch.kernels.paged_attention import (paged_attention_cuda,
                                                  paged_attention_plain)
 
-launches: Dict[str, int] = {"paged_attention": 0, "mux_score": 0}
+launches: Dict[str, int] = {"paged_attention": 0, "mux_score": 0,
+                             "flash_attention": 0}
 
 
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+
+
+def attention(q, k, v, *, causal: bool = True,
+              window: Optional[int] = None, chunk: Optional[int] = None,
+              logit_cap: Optional[float] = None,
+              scale: Optional[float] = None):
+    """Whole-prompt attention.  q (B, S, H, hd); k/v (B, T, K, hd|vd);
+    causal alignment top-left.  A CPU tensor gets the model's
+    ``blocked_attention`` (what ``repro.kernels.ops.attention`` runs off
+    the TPU), a CUDA tensor the flash-attention kernel.  Returns
+    (B, S, H, vd) in q.dtype."""
+    if q.device.type == "cpu":
+        from repro_torch.models.attention import blocked_attention
+        return blocked_attention(q, k, v, causal=causal, window=window,
+                                 chunk=chunk, scale=scale,
+                                 logit_cap=logit_cap)
+    out = flash_attention_cuda(q.contiguous(), k.contiguous(),
+                               v.contiguous(), causal=causal, window=window,
+                               chunk=chunk, logit_cap=logit_cap, scale=scale)
+    launches["flash_attention"] += 1
+    return out
 
 
 def paged_attention(q, k_pages, v_pages, block_tables, lengths, *,

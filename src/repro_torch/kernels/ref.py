@@ -2,9 +2,10 @@
 CUDA kernels are held against, and what the dispatch layer
 (repro_torch.kernels.ops) runs for tensors on the CPU.
 
-Ports of ``repro.kernels.ref.paged_attention_ref`` and
-``mux_score_ref``.  They repeat the kernels' arithmetic at full
-materialisation and are no yardstick of speed.
+Ports of ``repro.kernels.ref.flash_attention_ref``,
+``paged_attention_ref`` and ``mux_score_ref``.  They repeat the
+kernels' arithmetic at full materialisation and are no yardstick of
+speed.
 """
 from __future__ import annotations
 
@@ -14,6 +15,42 @@ from typing import Optional
 import torch
 
 NEG_INF = -1e30
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True,
+                        window: Optional[int] = None,
+                        chunk: Optional[int] = None,
+                        logit_cap: Optional[float] = None,
+                        scale: Optional[float] = None) -> torch.Tensor:
+    """Naive full-materialisation attention.
+
+    q: (B, S, H, hd); k/v: (B, T, K, hd|vd); H % K == 0.  Causal
+    alignment is top-left (query i sees keys <= i).  q is scaled in its
+    own dtype, the scores and softmax are fp32.
+    Returns (B, S, H, vd) in q.dtype.
+    """
+    b, s, h, hd = q.shape
+    t, kk = k.shape[1], k.shape[2]
+    g = h // kk
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    qr = (q * scale).reshape(b, s, kk, g, hd)
+    sc = torch.einsum("bskgd,btkd->bkgst", qr.float(), k.float())
+    if logit_cap is not None:
+        sc = torch.tanh(sc / logit_cap) * logit_cap
+    q_pos = torch.arange(s, device=q.device)[:, None]
+    kv_pos = torch.arange(t, device=q.device)[None, :]
+    mask = torch.ones((s, t), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kv_pos <= q_pos
+    if window is not None:
+        mask &= kv_pos > q_pos - window
+    if chunk is not None:
+        floor = torch.div(q_pos, chunk, rounding_mode="floor") * chunk
+        mask &= kv_pos >= floor
+    sc = torch.where(mask[None, None, None], sc, torch.full_like(sc, NEG_INF))
+    p = torch.softmax(sc, dim=-1)
+    out = torch.einsum("bkgst,btkv->bskgv", p, v.float())
+    return out.reshape(b, s, h, v.shape[-1]).to(q.dtype)
 
 
 def paged_attention_ref(q, k_pages, v_pages, block_tables, lengths, *,

@@ -29,6 +29,7 @@ import torch
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (apply_mlp, apply_norm, apply_rope,
                                        dense_init, embed_init, init_mlp,
@@ -200,7 +201,9 @@ def _mixer_forward(p: Params, spec: LayerSpec, cfg: ModelConfig, x, *,
         out = attn.paged_prefill_attention(q, cache, block_tables, q_offset,
                                            **kw)
     else:
-        out = attn.blocked_attention(q, k, v, causal=True, **kw)
+        # whole prompt: the flash-attention kernel on the card, the
+        # blocked plain path on the CPU (kernels.ops.attention)
+        out = ops.attention(q, k, v, causal=True, **kw)
         if cache is not None:
             attn.paged_cache_prefill(cache, k, v, block_tables, start=0)
     return attn.out_project(ap, out)

@@ -86,6 +86,7 @@ class Engine:
         # copy-on-write page copies made
         self.prefill_tokens_computed = 0
         self.prefill_tokens_shared = 0
+        self.whole_prompt_prefills = 0      # flash-attention prefills
         self.cow_count = 0
         # cross-request logit cache: full-prompt hash -> the final prompt
         # token's logits row (bounded LRU; disabled at capacity 0)
@@ -158,6 +159,7 @@ class Engine:
         self._caches_poisoned = False
         self.prefill_tokens_computed = 0
         self.prefill_tokens_shared = 0
+        self.whole_prompt_prefills = 0      # flash-attention prefills
         self.cow_count = 0
         self._logit_cache = collections.OrderedDict()
         self._logit_cache_cap = int(logit_cache)
@@ -467,6 +469,7 @@ class Engine:
                 logits, _ = tf.prefill_paged(
                     self.params, self.cfg, torch.as_tensor(toks, device=dev),
                     self._paged_caches, bt, p - 1)
+                self.whole_prompt_prefills += 1
             else:
                 # q_offset tail path: positions < o are read back from
                 # pages earlier chunks (or a resident shared prefix)

@@ -243,9 +243,11 @@ class PagePool:
         self._ref: Dict[int, int] = {}
         self._index = PrefixIndex(page_size)
         # pages some holder may still write while shared (a resident's
-        # partially-filled boundary page mapped by an identical prompt):
-        # each may yet need refcount-1 copy-on-write allocations
-        self._cow_risk: Set[int] = set()
+        # partially-filled boundary page mapped by an identical prompt),
+        # each with the number of its holders that map it as their
+        # boundary page: only those ever write into it, so only they
+        # may need a copy-on-write allocation
+        self._cow_writers: Dict[int, int] = {}
         self.peak_in_use = 0
         # tracing: alloc/free instants record here when a backend binds
         # a live tracer (it sets both attrs); the null default is free
@@ -280,9 +282,17 @@ class PagePool:
 
     @property
     def cow_headroom(self) -> int:
-        """Free pages admission must hold back: every writable shared
-        page may still need (refcount - 1) copy-on-write copies."""
-        return sum(max(self._ref.get(p, 0) - 1, 0) for p in self._cow_risk)
+        """Free pages admission must hold back: a writable shared page
+        may still need one copy-on-write copy per writer but the last.
+        Its writers are the resident that filled it and each holder
+        that mapped it as its boundary page (``mark_cow_risk``), never
+        more than its holders; a holder that maps it as an interior
+        page (it shared a sequence that had grown past the page) never
+        writes it and costs nothing.  (The JAX package's copy charges
+        refcount - 1 for every such page, which counts those interior
+        holders too.)"""
+        return sum(max(min(w, self._ref.get(p, 0)) - 1, 0)
+                   for p, w in self._cow_writers.items())
 
     def pages_for(self, num_tokens: int) -> int:
         """Pages needed to hold ``num_tokens`` KV entries.  Zero tokens
@@ -351,12 +361,12 @@ class PagePool:
                 if self._ref[pg] == 0:
                     del self._ref[pg]
                     self._index.drop_page(pg)
-                    self._cow_risk.discard(pg)
+                    self._cow_writers.pop(pg, None)
                     heapq.heappush(self._free, pg)
                     freed += 1
                 elif self._ref[pg] == 1:
                     # exclusive again: no copy-on-write can be pending
-                    self._cow_risk.discard(pg)
+                    self._cow_writers.pop(pg, None)
             if freed and self.tracer.enabled:
                 self.tracer.instant("page_free", track=self.trace_track,
                                     args={"n": freed,
@@ -369,11 +379,14 @@ class PagePool:
         self.decref(pages)
 
     def mark_cow_risk(self, page: int) -> None:
-        """Flag a shared page some holder may still write (admission
-        reserves ``cow_headroom`` free pages against these)."""
+        """Flag a shared page that the caller — a new holder that maps
+        it as its boundary page — may still write, as may the resident
+        that filled it (admission reserves ``cow_headroom`` free pages
+        against these)."""
         with self._lock:
-            if self.refcount(page) > 1:
-                self._cow_risk.add(int(page))
+            pg = int(page)
+            if self.refcount(pg) > 1:
+                self._cow_writers[pg] = self._cow_writers.get(pg, 1) + 1
 
     # ---- prefix sharing -----------------------------------------------
     def lookup_prefix(self, tokens) -> Tuple[List[int], int]:

@@ -36,7 +36,10 @@ def test_port_imports_neither_jax_nor_repro(path):
 def test_scan_sees_the_whole_port():
     assert (ROOT / "chip_smoke.py").exists()
     names = {p.name for p in FILES}
-    assert {"engine.py", "mux_server.py", "ops.py", "transformer.py"} <= names
+    assert {"engine.py", "mux_server.py", "ops.py", "transformer.py",
+            "flash_attention.py", "backend.py", "runtime.py", "request.py",
+            "metrics.py", "batcher.py", "traffic.py", "tracer.py",
+            "gauges.py"} <= names
     assert not _forbidden("repro_torch.kernels")
     assert _forbidden("repro.kernels") and _forbidden("jax.numpy")
 
