@@ -20,19 +20,27 @@ Phases, each of which must pass:
    five shapes, GQA g in {1, 2, 4, 8} with S and T off the tiles, hd
    256, windows and chunks with fully masked rows in the first live
    tile (each in fp32 and bf16), and the served prefill shapes (B=1,
-   S=T in {128, 448, 1024}, H=K in {16, 32}, hd 128, bf16).  TF32 is
+   S=T in {128, 448, 1024}, H=K in {16, 32}, hd 128, bf16); K4
+   ``selective_scan`` on the JAX sweep's three shapes, S and d_in off
+   every tile, n in {4, 5, 8, 16, 64} (each with fp32 and bf16 x), a
+   random start state h0, h0 chaining (two halves, the second from the
+   first's h_final, equal one scan of the whole) and the served shape
+   (B=2, S=1024, d_in=8192, n=16, bf16 x).  TF32 is
    switched off for the plain versions
    (``torch.backends.cuda.matmul.allow_tf32 = False``,
    ``torch.backends.cudnn.allow_tf32 = False``), so they run in full
    fp32.  Tolerances: 2e-2 with bf16 operands or outputs, 1e-4 for
-   fp32 paged and flash attention, 1e-5 for the fp32 mux head.  Each
+   fp32 paged and flash attention, 1e-5 for the fp32 mux head, 2e-5
+   absolute plus 2e-5 relative for K4 (its arithmetic is fp32 whatever
+   x's dtype).  Each
    kernel is timed at the served shape (CUDA events; input copies
    rotated so the 50 MB L2 never holds the next call's operands)
    beside its plain version and its bound; K3 also beside
    ``scaled_dot_product_attention`` (timed only, never on the port's
    path).  A tiny fp32 model's prefill (through K3) and teacher-forced
    decode (through K1) on the card are held against the same model on
-   the CPU.
+   the CPU, and so are a tiny fp32 falcon-mamba's ``prefill`` (through
+   K4) and teacher-forced ring decode.
 3. The direct served path at full width: olmo-1b and codeqwen1.5-7b at
    their published configs (depth uncut) with random bf16 weights
    from a seeded ``torch.Generator``, bf16 page pools (page 64; 512
@@ -64,11 +72,26 @@ Phases, each of which must pass:
    no logit-cache hit, and every whole-prompt prefill (so every
    ``flash_attention`` launch) made on an executor thread.  Every logit
    sampled in phases 3-5 is finite.
+6. The ring-cache path of the launcher, after the zoo of phases 3-5 is
+   freed: falcon-mamba-7b at its published config (64 layers, d_model
+   4096, d_inner 8192) with random bf16 weights, built by
+   ``repro_torch.launch.serve.build_engine``, serves 2 prompts of 1024
+   tokens for 32 greedy tokens through ``Engine.generate`` (twice; the
+   first run warms up), then 16 ring decode steps are timed one by one;
+   olmo-1b at full width serves 2 x 256 tokens for 8 tokens the same
+   way (K3 on the ring prefill, ``cache_prefill``).  Checks: tokens of
+   shape (2, 1056) and (2, 264); every logit finite; per prefill call,
+   ``selective_scan`` launched 64 times (falcon-mamba) or
+   ``flash_attention`` 16 times (olmo-1b) and no other kernel.
 
 Output: progress lines, then the ``{"kernels": [...]}`` JSON line (the
-launches are phase 4's), a JSON line of the direct path's per-request
-admission ms and decode tokens/s and, for phases 4 and 5, the
-launches, TTFT p50/p99 and decode tokens/s per model, the card's name
+launches are phase 4's for K1-K3 and phase 6's falcon-mamba run for K4),
+a JSON line of the direct path's per-request admission ms and decode
+tokens/s and, for phases 4 and 5, the launches, TTFT p50/p99 and decode
+tokens/s per model, a JSON line of phase 6's prefill ms, decode
+tokens/s, median decode step ms and launches per model (with
+``--profile`` also device busy ms of the prefill, K4's share of it, and
+of one decode step), the card's name
 and power limit (nvidia-smi), and as the last line ``{"ok": true,
 "device": {...}}``.  Any failed check raises: the run exits non-zero without
 that last line.  It needs one CUDA card and a checkout of the
@@ -76,6 +99,7 @@ repository (it imports ``src/repro_torch``).
 """
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -93,7 +117,9 @@ BF16_TOL = 2e-2
 F32_PAGED_TOL = 1e-4
 F32_FLASH_TOL = 1e-4
 F32_MUX_TOL = 1e-5
+SCAN_RTOL = SCAN_ATOL = 2e-5     # K4 in fp32 arithmetic, as the JAX sweep
 MODEL_TOL = 1e-3                 # fp32 logits, card vs CPU
+SFU_EXP_PER_CLOCK_PER_SM = 16    # MUFU exponentials, Hopper
 
 
 class CheckFailed(AssertionError):
@@ -487,6 +513,186 @@ def check_model_against_cpu(dev) -> float:
     return worst
 
 
+def scan_inputs(gen, dev, b, s, d, n, x_dtype, h0=False):
+    """Random K4 operands drawn on the CPU from ``gen`` (distributed as
+    in the JAX sweep: dt = softplus(N(0,1)), A = -exp(N(0,1)/2)); x in
+    ``x_dtype``, the rest fp32."""
+    import torch
+    import torch.nn.functional as F
+    out = [torch.randn((b, s, d), generator=gen).to(x_dtype),
+           F.softplus(torch.randn((b, s, d), generator=gen)),
+           torch.randn((b, s, n), generator=gen),
+           torch.randn((b, s, n), generator=gen),
+           -torch.exp(torch.randn((d, n), generator=gen) * 0.5),
+           torch.randn((d,), generator=gen)]
+    if h0:
+        out.append(torch.randn((b, d, n), generator=gen))
+    return [t.to(dev) for t in out]
+
+
+def scan_err(got, want) -> tuple:
+    """(max abs error, whether every element is within SCAN_ATOL +
+    SCAN_RTOL * |want|)."""
+    diff = (got - want).abs()
+    ok = bool((diff <= SCAN_ATOL + SCAN_RTOL * want.abs()).all())
+    return diff.max().item() if diff.numel() else 0.0, ok
+
+
+# (b, s, d_in, n)
+SCAN_CASES = {
+    # tests/test_kernels.py's sweep
+    "sweep 1": (2, 128, 64, 16),
+    "sweep 2": (1, 256, 128, 8),
+    "sweep 3": (2, 64, 32, 4),
+    # S and d_in off every tile (32 steps, 128 / lanes channels)
+    "off-tile n=16": (1, 1000, 200, 16),
+    "off-tile n=8": (2, 77, 300, 8),
+    "off-tile n=5": (3, 33, 129, 5),
+    "n=64": (1, 100, 72, 64),
+}
+SCAN_SERVED = (2, 1024, 8192, 16)   # falcon-mamba-7b prefill, phase 6
+
+
+def check_selective_scan(dev) -> float:
+    """K4 against its plain version: the cases above with fp32 and bf16
+    x, a random start state, h0 chaining (the two halves of a sequence,
+    the second from the first's h_final, equal one scan of the whole),
+    and the served shape (bf16 x, fp32 dt).  Returns the max error."""
+    import torch
+    from repro_torch.kernels.ref import selective_scan_ref
+    from repro_torch.kernels.selective_scan import selective_scan_cuda
+    gen = torch.Generator().manual_seed(SEED)
+    worst = 0.0
+
+    def held(name, got, want):
+        nonlocal worst
+        for part, g, w in zip(("y", "h_final"), got, want):
+            err, ok = scan_err(g, w)
+            log(f"K4 {name:28s} {part:7s} max_err={err:.3e} "
+                f"tol={SCAN_ATOL:g}+{SCAN_RTOL:g}|want|")
+            check(ok, f"K4 {name} {part}: max_err {err:.3e} off tolerance")
+            worst = max(worst, err)
+
+    cases = [(f"{n_} {d_}", c, dt) for n_, c in SCAN_CASES.items()
+             for d_, dt in (("float32", torch.float32),
+                            ("bf16", torch.bfloat16))]
+    cases.append(("served bf16", SCAN_SERVED, torch.bfloat16))
+    for name, (b, s, d, n), x_dtype in cases:
+        inp = scan_inputs(gen, dev, b, s, d, n, x_dtype, h0=True)
+        got = selective_scan_cuda(*inp[:6])
+        torch.cuda.synchronize()
+        held(name, got, selective_scan_ref(*inp[:6]))
+        if s >= 64:                 # a random start state, and chaining
+            got = selective_scan_cuda(*inp)
+            torch.cuda.synchronize()
+            held(name + " h0", got, selective_scan_ref(*inp))
+            x, dt, bm, cm, a, dv, _ = inp
+            cut = s // 2 + 3
+            y1, h1 = selective_scan_cuda(x[:, :cut].contiguous(),
+                                         dt[:, :cut].contiguous(),
+                                         bm[:, :cut].contiguous(),
+                                         cm[:, :cut].contiguous(), a, dv)
+            y2, h2 = selective_scan_cuda(x[:, cut:].contiguous(),
+                                         dt[:, cut:].contiguous(),
+                                         bm[:, cut:].contiguous(),
+                                         cm[:, cut:].contiguous(), a, dv, h1)
+            torch.cuda.synchronize()
+            held(name + " chained", (torch.cat([y1, y2], 1), h2),
+                 selective_scan_ref(*inp[:6]))
+    return worst
+
+
+def sm_clock_hz() -> float:
+    """The card's maximum SM clock (nvidia-smi clocks.max.sm)."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    check(out.returncode == 0, f"nvidia-smi failed: {out.stderr.strip()}")
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+def scan_bound_ms(inp, h0: bool = False) -> tuple:
+    """(bound ms, bound_by) of one K4 call on these inputs: x, dt, B, C,
+    A, D (and h0) read once and y, h_final written once, over HBM
+    bandwidth; against the larger of one exponential per (t, d, n) at
+    the SFU rate (16 a clock per SM at the card's maximum SM clock) and
+    3 fp32 FMAs per (t, d, n) at the fp32 peak."""
+    import torch
+    x, dt, bm, cm, a, dv = inp[:6]
+    b, s, d = x.shape
+    n = bm.shape[-1]
+    byts = sum(t.numel() * t.element_size() for t in (x, dt, bm, cm))
+    byts += 4 * (a.numel() + dv.numel() + b * s * d + b * d * n * (1 + h0))
+    steps = b * s * d * n
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    t_exp = steps / (SFU_EXP_PER_CLOCK_PER_SM * sms * sm_clock_hz()) * 1e3
+    t_fma = 2 * 3 * steps / FP32_FLOPS * 1e3
+    t_bytes = byts / HBM_BYTES_PER_S * 1e3
+    t_ops = max(t_exp, t_fma)
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def time_selective_scan(dev) -> dict:
+    """K4 at the served prefill shape of falcon-mamba-7b (B=2, S=1024,
+    d_in=8192, n=16, bf16 x, fp32 dt/B/C, a start state h0, as
+    ``mamba_forward`` passes ``cache["h"]``) beside its plain version and
+    its bound.  No single PyTorch call computes a selective
+    scan, so there is no library time.  Two input copies (~100 MB each)
+    rotate so the L2 does not hold the next call's operands."""
+    import torch
+    from repro_torch.kernels.ref import selective_scan_ref
+    from repro_torch.kernels.selective_scan import selective_scan_cuda
+    gen = torch.Generator().manual_seed(SEED + 9)
+    copies = [scan_inputs(gen, dev, *SCAN_SERVED, torch.bfloat16, h0=True)
+              for _ in range(2)]
+    n = len(copies)
+    ms = time_cuda(lambda i: selective_scan_cuda(*copies[i % n]), iters=50)
+    plain_ms = time_cuda(lambda i: selective_scan_ref(*copies[i % n]),
+                         iters=3, warmup=1)
+    bound, bound_by = scan_bound_ms(copies[0], h0=True)
+    log(f"K4 time at B=2 S=1024 d_in=8192 n=16 (bf16 x, h0): kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({bound_by})")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": bound_by}
+
+
+def check_mamba_against_cpu(dev) -> float:
+    """A tiny fp32 falcon-mamba model: ``prefill`` (through K4 on the
+    card) + teacher-forced ring decode on the card, against the same
+    weights on the CPU (plain path).  Returns the max logit
+    difference."""
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tf
+    cfg = get_smoke_config("falcon-mamba-7b").with_(
+        compute_dtype="float32", d_model=64, d_inner=128, dt_rank=8,
+        vocab_size=128)
+    params = tf.init_params(cfg, torch.Generator().manual_seed(SEED),
+                            device="cpu")
+    gparams = _to_device(params, dev)
+    toks = torch.randint(0, cfg.vocab_size, (2, 48),
+                         generator=torch.Generator().manual_seed(SEED))
+    runs = {}
+    for p, d in ((params, torch.device("cpu")), (gparams, dev)):
+        ops.reset_launches()
+        logits, caches = tf.prefill(p, cfg, toks[:, :40].to(d), cache_len=48)
+        logits = [logits]
+        for i in range(40, 48):
+            logits.append(tf.decode_step(p, cfg, toks[:, i:i + 1].to(d),
+                                         caches, i)[0])
+        runs[d.type] = torch.cat([x.float().cpu() for x in logits], 1)
+    worst = (runs["cpu"] - runs["cuda"]).abs().max().item()
+    log(f"tiny falcon-mamba on the card vs CPU: max logit diff {worst:.3e} "
+        f"tol={MODEL_TOL:g}; card launches {ops.launches}")
+    check(worst <= MODEL_TOL, f"tiny falcon-mamba card vs CPU: {worst:.3e}")
+    check(ops.launches["selective_scan"] == cfg.num_layers,
+          f"tiny falcon-mamba: selective_scan launched "
+          f"{ops.launches['selective_scan']} times for one prefill of "
+          f"{cfg.num_layers} layers")
+    return worst
+
+
 # ---------------------------------------------------------------------------
 # phases 3 and 4: the served paths
 # ---------------------------------------------------------------------------
@@ -748,7 +954,6 @@ def profile_decode_step(eng, active) -> dict:
     time, which the profiler inflates (``serve`` sets the idle share
     against an unprofiled step)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -757,12 +962,7 @@ def profile_decode_step(eng, active) -> dict:
         eng.decode_step_batch(active)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
-    rows = []
-    for evt in prof.key_averages():
-        if evt.device_type != DeviceType.CPU and evt.device_time_total > 0:
-            rows.append((evt.device_time_total / 1e3, evt.count,
-                         evt.key[:80]))
-    rows.sort(reverse=True)
+    rows = _device_rows(prof)
     busy = sum(r[0] for r in rows)
     paged = sum(r[0] for r in rows if "paged_attention_kernel" in r[2])
     return {"profiled_step_ms": wall_ms, "device_busy_ms": busy,
@@ -779,7 +979,6 @@ def profile_prefill(eng, rng, n_tokens: int, repeats: int = 3) -> dict:
     torch.profiler for device time by kernel.  The idle share is taken
     against the median unprofiled admission."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     vocab = eng.cfg.vocab_size
 
@@ -798,10 +997,7 @@ def profile_prefill(eng, rng, n_tokens: int, repeats: int = 3) -> dict:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         admit()
-    rows = [(e.device_time_total / 1e3, e.count, e.key[:80])
-            for e in prof.key_averages()
-            if e.device_type != DeviceType.CPU and e.device_time_total > 0]
-    rows.sort(reverse=True)
+    rows = _device_rows(prof)
     busy = sum(r[0] for r in rows)
     k3 = sum(r[0] for r in rows if "flash_attention_kernel" in r[2])
     step = float(np.median(wall))
@@ -810,6 +1006,147 @@ def profile_prefill(eng, rng, n_tokens: int, repeats: int = 3) -> dict:
             "flash_attention_ms": k3, "idle_share": 1.0 - busy / step,
             "top": [{"ms": ms, "calls": n, "name": k}
                     for ms, n, k in rows[:6]]}
+
+
+def _device_rows(prof):
+    """(ms, calls, name) of every device event row of a profile,
+    largest first (a CPU op's row repeats its kernels' time and is left
+    out)."""
+    from torch.autograd import DeviceType
+    rows = [(e.device_time_total / 1e3, e.count, e.key[:80])
+            for e in prof.key_averages()
+            if e.device_type != DeviceType.CPU and e.device_time_total > 0]
+    return sorted(rows, reverse=True)
+
+
+def serve_ring(dev, arch, *, prompt_len, new_tokens, batch=2, step_times=0,
+               profile=False, on_logits=None) -> dict:
+    """Phase 6, the launcher's path: ``launch.serve.build_engine`` (the
+    published config, random bf16 weights from ``SEED``) ->
+    ``Engine.generate`` on ``batch`` random prompts of ``prompt_len``
+    tokens for ``new_tokens`` greedy tokens, twice (the first run warms
+    up); the launch counts and the ``tf.prefill`` calls are read over
+    these two runs.  Then ``step_times`` ring decode steps after one
+    more prefill, each timed alone to a synchronise (host clock), for
+    the median step; with ``profile``, one prefill and one decode step
+    under torch.profiler.  Returns the numbers and launch counts."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tf
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    eng = serve.build_engine(arch, smoke=False, seed=SEED, device=dev,
+                             max_len=prompt_len + new_tokens)
+    sync()
+    setup_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(eng.params))
+    log(f"{arch}: {n_params / 1e9:.3f}B params (bf16), setup {setup_s:.1f} s")
+    if on_logits is not None:
+        eng._pick = _watch(eng._pick, on_logits)
+    prompts = torch.randint(0, eng.cfg.vocab_size, (batch, prompt_len),
+                            generator=torch.Generator().manual_seed(SEED + 3),
+                            dtype=torch.int32)
+    prefills = [0]
+    real_prefill = tf.prefill
+
+    def counted(*args, **kw):
+        prefills[0] += 1
+        return real_prefill(*args, **kw)
+
+    def prefill():
+        return tf.prefill(eng.params, eng.cfg, prompts.to(dev),
+                          cache_len=eng.scfg.max_len)
+
+    tf.prefill = counted        # Engine.generate calls it through the module
+    try:
+        ops.reset_launches()
+        runs = [eng.generate(prompts, max_new_tokens=new_tokens)
+                for _ in range(2)]
+        launches, n_prefills = dict(ops.launches), prefills[0]
+        step_ms = []
+        if step_times:
+            logits, caches = prefill()
+            for i in range(step_times):
+                tok = logits[:, 0].argmax(-1, keepdim=True)
+                sync()
+                t = time.perf_counter()
+                logits, caches = tf.decode_step(eng.params, eng.cfg, tok,
+                                                caches, prompt_len + i)
+                sync()
+                step_ms.append((time.perf_counter() - t) * 1e3)
+            if on_logits is not None:
+                on_logits(logits)
+        prof = None
+        if profile:
+            acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+            with tprofile(activities=acts) as p_prefill:
+                logits, caches = prefill()
+                sync()
+            tok = logits[:, 0].argmax(-1, keepdim=True)
+            with tprofile(activities=acts) as p_step:
+                tf.decode_step(eng.params, eng.cfg, tok, caches, prompt_len)
+                sync()
+            rows_p, rows_s = _device_rows(p_prefill), _device_rows(p_step)
+            busy_p = sum(r[0] for r in rows_p)
+            busy_s = sum(r[0] for r in rows_s)
+            k4 = sum(r[0] for r in rows_p if "selective_scan_kernel" in r[2])
+            prefill_ms = runs[-1]["prefill_s"] * 1e3
+            prof = {"prefill_device_busy_ms": busy_p,
+                    "prefill_selective_scan_ms": k4,
+                    "prefill_selective_scan_share": k4 / busy_p,
+                    "prefill_idle_share": 1.0 - busy_p / prefill_ms,
+                    "step_device_busy_ms": busy_s,
+                    "top_prefill": [{"ms": ms, "calls": n, "name": k}
+                                    for ms, n, k in rows_p[:6]],
+                    "top_step": [{"ms": ms, "calls": n, "name": k}
+                                 for ms, n, k in rows_s[:6]]}
+            if step_ms:
+                prof["step_idle_share"] = 1.0 - busy_s / float(
+                    np.median(step_ms))
+    finally:
+        tf.prefill = real_prefill
+    out = {"model": arch, "layers": eng.cfg.num_layers, "params": n_params,
+           "batch": batch, "prompt_len": prompt_len, "new_tokens": new_tokens,
+           "tokens_shapes": [tuple(r["tokens"].shape) for r in runs],
+           "prompts_kept": all(torch.equal(r["tokens"][:, :prompt_len].cpu(),
+                                           prompts) for r in runs),
+           "ids_in_vocab": all(bool(((r["tokens"] >= 0) & (
+               r["tokens"] < eng.cfg.vocab_size)).all()) for r in runs),
+           "prefill_ms": [r["prefill_s"] * 1e3 for r in runs],
+           "decode_tokens_per_s": [r["tokens_per_s"] for r in runs],
+           "median_decode_step_ms": (float(np.median(step_ms)) if step_ms
+                                     else None),
+           "prefills": n_prefills, "launches": launches, "profile": prof}
+    del eng
+    return out
+
+
+def check_ring(run, *, scan: bool) -> None:
+    """Checks of a ``serve_ring`` run: the output shapes, the prompts
+    kept and every id in the vocabulary, and each prefill launched the scan (mamba) or flash attention (attention) in
+    every layer and nothing else; no paged decode kernel ran."""
+    name, layers = run["model"], run["layers"]
+    want_shape = (run["batch"], run["prompt_len"] + run["new_tokens"])
+    check(all(s == want_shape for s in run["tokens_shapes"]),
+          f"{name}: generate gave tokens of shapes {run['tokens_shapes']}, "
+          f"expected {want_shape}")
+    check(run["prompts_kept"] and run["ids_in_vocab"],
+          f"{name}: generate changed its prompts or made ids outside the "
+          f"vocabulary")
+    got = run["launches"]
+    want = {"selective_scan": layers * run["prefills"] if scan else 0,
+            "flash_attention": 0 if scan else layers * run["prefills"],
+            "paged_attention": 0, "mux_score": 0}
+    check(run["prefills"] > 0 and got == want,
+          f"{name}: launches {got} for {run['prefills']} prefills of "
+          f"{layers} layers, expected {want}")
 
 
 def _leaves(tree):
@@ -913,8 +1250,10 @@ def main(argv) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="also run decode step 2 of each engine and one "
-                         "1024-token whole-prompt prefill per engine "
-                         "under torch.profiler and print the breakdowns")
+                         "1024-token whole-prompt prefill per engine, and "
+                         "one falcon-mamba-7b prefill and ring decode step "
+                         "(phase 6), under torch.profiler and print the "
+                         "breakdowns")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -949,6 +1288,9 @@ def main(argv) -> int:
     k3_err = check_flash_attention(dev)
     k3 = time_flash_attention(dev)
     check_model_against_cpu(dev)
+    k4_err = check_selective_scan(dev)
+    k4 = time_selective_scan(dev)
+    check_mamba_against_cpu(dev)
 
     cfgs = [get_config("olmo-1b"), get_config("codeqwen1.5-7b")]
     finite = {"bad": 0, "seen": 0}
@@ -976,8 +1318,7 @@ def main(argv) -> int:
     check_served(stats, cfgs)
     if args.profile:
         rng = np.random.default_rng(SEED + 2)
-        for eng in zoo["engines"]:
-            prof = profile_prefill(eng, rng, 1024)
+        for prof in [profile_prefill(e, rng, 1024) for e in zoo["engines"]]:
             log(f"  prefill profile {json.dumps(prof)}")
 
     # phase 4: the scheduler path, the main path of this run; phase 5:
@@ -999,6 +1340,30 @@ def main(argv) -> int:
     run = runs[True]
     check(finite["seen"] > 0 and finite["bad"] == 0,
           f"{finite['bad']} of {finite['seen']} logits tensors not finite")
+
+    # phase 6: the ring-cache path of the launcher, after freeing the zoo
+    del zoo
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    log(f"zoo freed: {held / 1e9:.3f} GB allocated")
+    check(held < 1e9, f"the zoo of phases 3-5 still holds {held / 1e9:.2f} "
+          f"GB of device memory")
+    finite.update(bad=0, seen=0)
+    ring = {}
+    for arch, plen, new, scan in (("falcon-mamba-7b", 1024, 32, True),
+                                  ("olmo-1b", 256, 8, False)):
+        r = serve_ring(dev, arch, prompt_len=plen, new_tokens=new,
+                       step_times=16 if scan else 0,
+                       profile=args.profile and scan, on_logits=on_logits)
+        log(f"phase 6, {arch} ring path: {json.dumps(r)}")
+        check_ring(r, scan=scan)
+        ring[arch] = r
+        gc.collect()
+        torch.cuda.empty_cache()
+    check(finite["seen"] > 0 and finite["bad"] == 0,
+          f"phase 6: {finite['bad']} of {finite['seen']} logits tensors not "
+          f"finite")
 
     launches = run["launches"]
     kernels = [
@@ -1023,9 +1388,17 @@ def main(argv) -> int:
          "max_abs_err": k3_err, "ms": k3["ms"],
          "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
          "bound_by": k3["bound_by"], "library_ms": k3["library_ms"]},
+        {"name": "selective_scan", "route": "cuda",
+         "source": "src/repro_torch/csrc/selective_scan.cu",
+         "replaces": "src/repro/kernels/selective_scan.py:65",
+         "launches": ring["falcon-mamba-7b"]["launches"]["selective_scan"],
+         "max_abs_err": k4_err, "ms": k4["ms"],
+         "plain_ms": k4["plain_ms"], "bound_ms": k4["bound_ms"],
+         "bound_by": k4["bound_by"], "library_ms": None},
     ]
-    # launches: the scheduler path's run; plain_ms is the plain PyTorch
-    # version's time, no yardstick of speed
+    # launches: the scheduler path's run (K1-K3) and phase 6's falcon-mamba
+    # run (K4); plain_ms is the plain PyTorch version's time, no yardstick
+    # of speed
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({
         "direct": {
@@ -1042,6 +1415,10 @@ def main(argv) -> int:
                 "decode_tokens_per_s")} for e in r["engines"]}}
            for name, r in (("scheduler", runs[True]),
                            ("scheduler_no_prewarm", runs[False]))}}),
+        flush=True)
+    print(json.dumps({"ring": {arch: {k: r[k] for k in (
+        "prefill_ms", "decode_tokens_per_s", "median_decode_step_ms",
+        "prefills", "launches", "profile")} for arch, r in ring.items()}}),
         flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

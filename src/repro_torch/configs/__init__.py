@@ -12,6 +12,7 @@ from repro_torch.configs.base import (INPUT_SHAPES, LayerSpec, ModelConfig,
 ARCHITECTURES: Dict[str, str] = {
     "olmo-1b": "repro_torch.configs.olmo_1b",
     "codeqwen1.5-7b": "repro_torch.configs.codeqwen15_7b",
+    "falcon-mamba-7b": "repro_torch.configs.falcon_mamba_7b",
 }
 
 

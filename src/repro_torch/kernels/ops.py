@@ -19,9 +19,10 @@ from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.mux_score import mux_score_cuda
 from repro_torch.kernels.paged_attention import (paged_attention_cuda,
                                                  paged_attention_plain)
+from repro_torch.kernels.selective_scan import selective_scan_cuda
 
 launches: Dict[str, int] = {"paged_attention": 0, "mux_score": 0,
-                             "flash_attention": 0}
+                             "flash_attention": 0, "selective_scan": 0}
 
 
 def reset_launches() -> None:
@@ -74,6 +75,19 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
     out = paged_attention_cuda(q, k_pages, v_pages, block_tables, lengths,
                                prefetch=prefetch, **kw)
     launches["paged_attention"] += 1
+    return out
+
+
+def selective_scan(x, dt, b_mat, c_mat, a_mat, d_vec, h0=None):
+    """Mamba-1 scan from start state ``h0`` (zeros when None).
+    x/dt: (B, S, d_in); b_mat/c_mat: (B, S, n); a_mat: (d_in, n);
+    d_vec: (d_in,).  Returns (y (B, S, d_in) fp32 including D * x,
+    h_final (B, d_in, n) fp32)."""
+    if x.device.type == "cpu":
+        return ref.selective_scan_ref(x, dt, b_mat, c_mat, a_mat, d_vec, h0)
+    out = selective_scan_cuda(x.contiguous(), dt, b_mat, c_mat, a_mat, d_vec,
+                              h0)
+    launches["selective_scan"] += 1
     return out
 
 

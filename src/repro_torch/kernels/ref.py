@@ -3,9 +3,9 @@ CUDA kernels are held against, and what the dispatch layer
 (repro_torch.kernels.ops) runs for tensors on the CPU.
 
 Ports of ``repro.kernels.ref.flash_attention_ref``,
-``paged_attention_ref`` and ``mux_score_ref``.  They repeat the
-kernels' arithmetic at full materialisation and are no yardstick of
-speed.
+``paged_attention_ref``, ``selective_scan_ref`` (with a start state
+``h0``) and ``mux_score_ref``.  They repeat the kernels' arithmetic
+at full materialisation and are no yardstick of speed.
 """
 from __future__ import annotations
 
@@ -95,6 +95,28 @@ def paged_attention_ref(q, k_pages, v_pages, block_tables, lengths, *,
     # contract for such rows is exact zeros
     out = torch.where(lengths[:, None, None] > 0, out, torch.zeros_like(out))
     return out.to(q.dtype)
+
+
+def selective_scan_ref(x, dt, b_mat, c_mat, a_mat, d_vec, h0=None):
+    """Sequential-in-time Mamba-1 recurrence (fp32).
+
+    x/dt: (B, S, d_in); b_mat/c_mat: (B, S, n); a_mat: (d_in, n);
+    d_vec: (d_in,); h0: (B, d_in, n) start state (zeros when None).
+    For each t: h = exp(dt_t A) * h + (dt_t x_t) B_t, y_t = h C_t + D x_t.
+    Returns (y (B, S, d_in) fp32, h_final (B, d_in, n) fp32).
+    """
+    xf, dtf = x.float(), dt.float()
+    bf, cf, af = b_mat.float(), c_mat.float(), a_mat.float()
+    b, s, d_in = x.shape
+    h = (torch.zeros((b, d_in, a_mat.shape[1]), dtype=torch.float32,
+                     device=x.device) if h0 is None else h0.float())
+    ys = []
+    for t in range(s):
+        decay = torch.exp(dtf[:, t, :, None] * af[None])         # (B,d_in,n)
+        h = decay * h + (dtf[:, t] * xf[:, t])[:, :, None] * bf[:, t, None, :]
+        ys.append(torch.einsum("bdn,bn->bd", h, cf[:, t]))
+    y = (torch.stack(ys, 1) if ys else torch.zeros_like(xf))
+    return y + xf * d_vec.float()[None, None], h
 
 
 def mux_score_ref(meta, v, cost, *, normalize: bool = True) -> torch.Tensor:

@@ -1,17 +1,23 @@
-"""Attention on the paged path: projections, blocked prefill attention,
-masked decode / causal attention over explicit KV views, and the
-pool-wide paged KV store.
+"""Attention: projections, blocked prefill attention, masked decode /
+causal attention over explicit KV views, the per-request ring KV cache
+and the pool-wide paged KV store.
 
-Port of the paged subset of ``repro.models.attention``.  Differences
-from the JAX package, by design:
+Port of the paged and ring subsets of ``repro.models.attention``.
+Differences from the JAX package, by design:
 
-* Pool tensors are updated **in place** (advanced-index assignment,
-  i.e. ``index_put_``) where JAX returns a new pool from a donated one:
-  ``paged_cache_insert`` / ``paged_cache_prefill`` mutate ``cache`` and
-  also return it, so call sites read the same in both packages.
-* Decode attention always goes through ``kernels.ops.paged_attention``:
-  the hand-written CUDA kernel for CUDA tensors, its plain PyTorch
-  version (the gather oracle) for CPU tensors.
+* Cache tensors are updated **in place** (advanced-index assignment,
+  i.e. ``index_put_``) where JAX returns a new cache from a donated one:
+  ``cache_insert`` / ``cache_prefill`` / ``paged_cache_insert`` /
+  ``paged_cache_prefill`` mutate ``cache`` and also return it, so call
+  sites read the same in both packages.
+* An int8 cache dequantises in fp32 (ring and paged), as the decode
+  kernel does; the JAX package writes a bf16 product, which XLA keeps
+  in fp32 when it fuses it into the fp32 score product.
+* Paged decode attention always goes through
+  ``kernels.ops.paged_attention``: the hand-written CUDA kernel for
+  CUDA tensors, its plain PyTorch version (the gather oracle) for CPU
+  tensors.  Ring decode attention is plain PyTorch on both, as it is
+  plain code in the JAX package.
 * No fused PyTorch attention operator is called anywhere here; score
   products are computed in fp32 from fp32 copies of bf16 operands,
   which is what JAX's ``preferred_element_type=float32`` gives.
@@ -230,6 +236,95 @@ def masked_causal_attention(q, k, v, kv_pos, q_pos, *,
     p = torch.softmax(_masked_fill(sc, mask[:, None, None]), dim=-1)
     out = torch.einsum("bkgst,btkv->bskgv", p, v.float())
     return out.reshape(b, s, h, v.shape[-1]).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Ring-buffer KV cache + decode attention
+# ---------------------------------------------------------------------------
+
+def init_kv_cache(batch: int, capacity: int, num_kv_heads: int,
+                  head_dim: int, *, v_head_dim: Optional[int] = None,
+                  dtype=torch.bfloat16, device) -> Params:
+    """Per-request ring of ``capacity`` slots; ``pos`` holds the absolute
+    position in each slot (-1 = empty).  dtype=int8 stores quantized k/v
+    with per-(token, head) max-abs bf16 scales."""
+    v_hd = v_head_dim or head_dim
+    if isinstance(dtype, str):
+        dtype = getattr(torch, dtype)
+    cache = {
+        "k": torch.zeros((batch, capacity, num_kv_heads, head_dim),
+                         dtype=dtype, device=device),
+        "v": torch.zeros((batch, capacity, num_kv_heads, v_hd), dtype=dtype,
+                         device=device),
+        "pos": torch.full((capacity,), -1, dtype=torch.int32, device=device),
+    }
+    if dtype == torch.int8:
+        for name in ("k_scale", "v_scale"):
+            cache[name] = torch.zeros((batch, capacity, num_kv_heads),
+                                      dtype=torch.bfloat16, device=device)
+    return cache
+
+
+def _dequant_kv(cache: Params):
+    """Returns (k, v) of a ring cache, dequantised in fp32 if int8."""
+    k, v = cache["k"], cache["v"]
+    if k.dtype == torch.int8:
+        k = k.float() * cache["k_scale"].float()[..., None]
+        v = v.float() * cache["v_scale"].float()[..., None]
+    return k, v
+
+
+def _ring_write(cache: Params, slots, positions, k, v) -> None:
+    """cache[...][:, slots] = k / v (B, len(slots), K, hd), quantising
+    for an int8 cache; cache["pos"][slots] = positions."""
+    if cache["k"].dtype == torch.int8:
+        k, ks = _quantize(k)
+        v, vs = _quantize(v)
+        cache["k_scale"][:, slots] = ks
+        cache["v_scale"][:, slots] = vs
+    cache["k"][:, slots] = k.to(cache["k"].dtype)
+    cache["v"][:, slots] = v.to(cache["v"].dtype)
+    cache["pos"][slots] = positions.to(torch.int32)
+
+
+def cache_insert(cache: Params, k_new, v_new, pos) -> Params:
+    """Insert one token's k/v (B, 1, K, hd) at ring slot pos % capacity,
+    in place.  ``pos`` is a shared position: an int or a 1-element
+    tensor."""
+    cap = cache["k"].shape[1]
+    pos = torch.as_tensor(pos, device=k_new.device).long().reshape(1)
+    _ring_write(cache, pos % cap, pos, k_new, v_new)
+    return cache
+
+
+def cache_prefill(cache: Params, k, v, start: int = 0) -> Params:
+    """Write S tokens (B, S, K, hd) at absolute positions start.., in
+    place, at ring slots position % capacity; when S exceeds the
+    capacity only the trailing ``capacity`` tokens survive."""
+    cap = cache["k"].shape[1]
+    s = k.shape[1]
+    if s > cap:  # only the trailing `cap` tokens survive a ring overwrite
+        k, v = k[:, -cap:], v[:, -cap:]
+        start, s = start + (s - cap), cap
+    positions = start + torch.arange(s, device=k.device)
+    _ring_write(cache, positions % cap, positions, k, v)
+    return cache
+
+
+def decode_attention(q, cache: Params, pos, *, window: Optional[int] = None,
+                     chunk: Optional[int] = None,
+                     scale: Optional[float] = None,
+                     logit_cap: Optional[float] = None) -> torch.Tensor:
+    """Single-token attention over the ring cache.
+
+    q: (B, 1, H, hd); pos: absolute position of the query token (the
+    cache must already hold the query token's own k/v).
+    Returns (B, 1, H, vd).
+    """
+    k, v = _dequant_kv(cache)
+    return masked_decode_attention(q, k, v, cache["pos"], pos, window=window,
+                                   chunk=chunk, scale=scale,
+                                   logit_cap=logit_cap)
 
 
 # ---------------------------------------------------------------------------

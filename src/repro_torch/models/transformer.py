@@ -1,24 +1,28 @@
-"""Pattern-tiled decoder LM, dense self-attention blocks, on the paged
-path.
+"""Pattern-tiled decoder LM: dense self-attention blocks and Mamba-1
+blocks, on the paged and the ring cache paths.
 
 Port of ``repro.models.transformer`` for configs whose pattern holds
-only ``mixer="attn"`` layers with a dense (or no) MLP — olmo-1b and
-codeqwen1.5-7b among them.  Mamba, MLA, MoE, cross-attention, codebook
-heads, the ring cache and ``verify_paged`` are not ported yet and
-raise ``NotImplementedError``.
+``mixer="attn"`` layers with a dense (or no) MLP — olmo-1b and
+codeqwen1.5-7b among them — or ``mixer="mamba"`` layers with no MLP
+(falcon-mamba-7b).  MLA, MoE, cross-attention, codebook heads,
+sinusoidal positions and ``verify_paged`` are not ported yet and raise
+``NotImplementedError``.
 
 Layout: as in the JAX package, the params of pattern position i are
 stacked over the G = num_layers / len(pattern) groups (leaves
-``(G, ...)``) and so are the paged-cache slabs; the forward pass loops
-over groups and indexes group g as a view.  Caches are updated in
-place (see ``repro_torch.models.attention``); ``prefill_paged`` and
-``decode_step`` still return ``(logits, caches)`` so call sites match
-the JAX package.
+``(G, ...)``) and so are the caches; the forward pass loops over groups
+and indexes group g as a view.  Caches are updated in place (see
+``repro_torch.models.attention`` and ``repro_torch.models.mamba``);
+``prefill``, ``prefill_paged`` and ``decode_step`` still return
+``(logits, caches)`` so call sites match the JAX package.
 
 Entry points:
-  * ``forward``        (train / prefill / decode, paged caches)
+  * ``forward``        (train / prefill / decode)
+  * ``prefill``        (a prompt, writing fresh ring / SSM caches)
   * ``prefill_paged``  (a prompt, or a shared-prefix tail, into pages)
-  * ``decode_step``    (one token per row at per-row positions)
+  * ``decode_step``    (one token: ring caches at a shared scalar
+    position, or — via ``block_tables`` — the paged pool at per-row
+    positions)
 """
 from __future__ import annotations
 
@@ -31,6 +35,7 @@ from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba as ssm
 from repro_torch.models.layers import (apply_mlp, apply_norm, apply_rope,
                                        dense_init, embed_init, init_mlp,
                                        init_norm, softcap)
@@ -40,10 +45,13 @@ Params = Dict[str, Any]
 
 def _check_supported(cfg: ModelConfig) -> None:
     for spec in cfg.pattern:
-        if spec.mixer != "attn" or spec.mlp not in ("dense", "none"):
+        attn_ok = spec.mixer == "attn" and spec.mlp in ("dense", "none")
+        mamba_ok = spec.mixer == "mamba" and spec.mlp == "none"
+        if not (attn_ok or mamba_ok):
             raise NotImplementedError(
-                f"{cfg.name}: the port runs dense self-attention blocks "
-                f"only, got mixer={spec.mixer!r} mlp={spec.mlp!r}")
+                f"{cfg.name}: the port runs dense self-attention blocks and "
+                f"mamba blocks without an MLP only, got mixer={spec.mixer!r} "
+                f"mlp={spec.mlp!r}")
     if cfg.num_codebooks or cfg.pos_embed not in ("rope", "none"):
         raise NotImplementedError(
             f"{cfg.name}: codebook heads and sinusoidal positions are not "
@@ -56,6 +64,12 @@ def _check_supported(cfg: ModelConfig) -> None:
 
 def _init_layer(gen, spec: LayerSpec, cfg: ModelConfig, dt, dev) -> Params:
     d = cfg.d_model
+    if spec.mixer == "mamba":
+        return {"norm1": init_norm(d, cfg.norm, dt, device=dev),
+                "mixer": ssm.init_mamba(
+                    gen, d_model=d, d_inner=cfg.d_inner,
+                    ssm_state=cfg.ssm_state, d_conv=cfg.d_conv,
+                    dt_rank=cfg.dt_rank, dtype=dt, device=dev)}
     v_hd = cfg.v_head_dim or cfg.head_dim
     a: Params = {
         "wq": dense_init(gen, d, cfg.num_heads * cfg.head_dim, dt, device=dev),
@@ -133,22 +147,52 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
 # Caches
 # ===========================================================================
 
-def init_caches(cfg: ModelConfig, *, num_pages: int, page_size: int,
+def init_caches(cfg: ModelConfig, batch: Optional[int] = None,
+                seq_len: Optional[int] = None, dtype=None, *,
+                num_pages: Optional[int] = None,
+                page_size: Optional[int] = None,
                 device: DeviceLike = None) -> Params:
-    """Paged-pool caches, one ``(G, num_pages, page_size, K, hd)`` slab
-    set per pattern position in ``cfg.kv_cache_dtype`` (int8 adds bf16
-    scale slabs).  Pages are shared across requests and addressed
-    through block tables."""
+    """Per-request ring caches by default: for each pattern position a
+    ``(G, batch, span, K, hd)`` KV ring (span = ``seq_len``, or the
+    window / chunk of a banded layer) or a mamba state.  Pass
+    ``num_pages`` / ``page_size`` for the paged-pool variant instead
+    (pages shared across requests, addressed through block tables;
+    ``batch`` / ``seq_len`` are then ignored; mamba layers have no paged
+    form).  ``dtype`` defaults to ``cfg.kv_cache_dtype`` (int8 adds
+    bf16 scale slabs); a mamba state ``h`` is fp32 whatever it is."""
     _check_supported(cfg)
     dev = resolve_device(device)
+    dtype = dtype if dtype is not None else cfg.kv_cache_dtype
+    if isinstance(dtype, str):
+        dtype = getattr(torch, dtype)
+    paged = page_size is not None
     g = cfg.num_groups
     caches: Params = {}
-    for i, _spec in enumerate(cfg.pattern):
-        one = attn.init_paged_kv_cache(
-            num_pages * g, page_size, cfg.num_kv_heads, cfg.head_dim,
-            v_head_dim=cfg.v_head_dim, dtype=cfg.kv_cache_dtype,
-            device=dev)
-        caches[f"p{i}"] = {k: v.reshape((g, num_pages) + v.shape[1:])
+    for i, spec in enumerate(cfg.pattern):
+        if paged and spec.mixer != "attn":
+            raise NotImplementedError(
+                f"paged KV cache supports attn mixers, got {spec.mixer!r} "
+                f"(mamba state is per-request, not token-paged)")
+        if paged:
+            one = attn.init_paged_kv_cache(
+                num_pages * g, page_size, cfg.num_kv_heads, cfg.head_dim,
+                v_head_dim=cfg.v_head_dim, dtype=dtype, device=dev)
+            caches[f"p{i}"] = {k: v.reshape((g, num_pages) + v.shape[1:])
+                               for k, v in one.items()}
+            continue
+        if spec.mixer == "mamba":
+            one = ssm.init_mamba_cache(g * batch, d_inner=cfg.d_inner,
+                                       ssm_state=cfg.ssm_state,
+                                       d_conv=cfg.d_conv, dtype=dtype,
+                                       device=dev)
+        else:
+            cap = attn.attention_span(spec.attn_kind, seq_len,
+                                      window=cfg.window, chunk=cfg.chunk)
+            one = attn.init_kv_cache(g * batch, cap, cfg.num_kv_heads,
+                                     cfg.head_dim, v_head_dim=cfg.v_head_dim,
+                                     dtype=dtype, device=dev)
+            one["pos"] = one["pos"].repeat(g)
+        caches[f"p{i}"] = {k: v.reshape((g, -1) + v.shape[1:])
                            for k, v in one.items()}
     return caches
 
@@ -167,12 +211,23 @@ def _mixer_forward(p: Params, spec: LayerSpec, cfg: ModelConfig, x, *,
                    positions, mode: str, pos=None, cache=None,
                    block_tables=None, q_offset=None, insert_from=None,
                    prefetch=None):
-    """Self-attention.  Returns the mixer output; a paged ``cache`` is
-    written in place.  In decode mode ``pos`` is per-row (B,);
-    ``q_offset`` (prefill) is the shared-prefix tail path: K/V is
-    written at absolute positions q_offset.. and attention runs over
-    the gathered pool view (resident prefix + tail); ``insert_from``
-    keeps tail writes off resident shared pages."""
+    """Self-attention or mamba mixer.  Returns the mixer output; a
+    ``cache`` (ring, paged or mamba state) is written in place.
+    ``block_tables`` (B, M) switches the attention cache path to the
+    paged pool; in decode mode ``pos`` is then per-row (B,), on the ring
+    path a shared (1,) position.  ``q_offset`` (prefill) is the
+    shared-prefix tail path: K/V is written at absolute positions
+    q_offset.. and attention runs over the gathered pool view (resident
+    prefix + tail); ``insert_from`` keeps tail writes off resident
+    shared pages."""
+    if spec.mixer == "mamba":
+        kw = dict(d_inner=cfg.d_inner, ssm_state=cfg.ssm_state,
+                  d_conv=cfg.d_conv, dt_rank=cfg.dt_rank,
+                  norm_bc_dt=cfg.mamba_norm)
+        if mode == "decode":
+            return ssm.mamba_decode(p["mixer"], x, cache, **kw)[0]
+        return ssm.mamba_forward(p["mixer"], x, cache=cache, **kw)[0]
+
     b = x.shape[0]
     ap = p["attn"]
     q, k, v = attn.qkv_project(ap, x, num_heads=cfg.num_heads,
@@ -188,7 +243,10 @@ def _mixer_forward(p: Params, spec: LayerSpec, cfg: ModelConfig, x, *,
     chunk = cfg.chunk if spec.attn_kind == "chunked" else None
     kw = dict(window=window, chunk=chunk, scale=_attn_scale(cfg),
               logit_cap=cfg.attn_logit_cap)
-    if mode == "decode":
+    if mode == "decode" and block_tables is None:
+        attn.cache_insert(cache, k, v, pos)
+        out = attn.decode_attention(q, cache, pos, **kw)
+    elif mode == "decode":
         attn.paged_cache_insert(cache, k, v, block_tables, pos)
         out = attn.paged_decode_attention(q, cache, block_tables, pos,
                                           prefetch=prefetch, **kw)
@@ -204,8 +262,10 @@ def _mixer_forward(p: Params, spec: LayerSpec, cfg: ModelConfig, x, *,
         # whole prompt: the flash-attention kernel on the card, the
         # blocked plain path on the CPU (kernels.ops.attention)
         out = ops.attention(q, k, v, causal=True, **kw)
-        if cache is not None:
+        if cache is not None and block_tables is not None:
             attn.paged_cache_prefill(cache, k, v, block_tables, start=0)
+        elif cache is not None:
+            attn.cache_prefill(cache, k, v, start=0)
     return attn.out_project(ap, out)
 
 
@@ -254,11 +314,13 @@ def forward(params: Params, cfg: ModelConfig, tokens, *, mode: str = "train",
             insert_from=None, prefetch=None):
     """Main entry.  mode: train | prefill | decode.
 
-    ``block_tables`` (B, M) routes the cache path through the paged
-    pool; decode ``pos`` is then per-row (B,).  Prefill ``q_offset``
-    shifts the sequence to absolute positions q_offset.. (the
-    shared-prefix tail path); ``insert_from`` bounds which of those
-    positions write the pool.  ``prefetch`` is the combined decode-step
+    ``caches`` are ring / mamba caches (``init_caches(cfg, batch,
+    seq_len)``) unless ``block_tables`` (B, M) routes the attention
+    cache path through the paged pool.  Decode ``pos`` is a shared
+    scalar on the ring path and per-row (B,) on the paged one.  Prefill
+    ``q_offset`` shifts the sequence to absolute positions q_offset..
+    (the shared-prefix tail path); ``insert_from`` bounds which of
+    those positions write the pool.  ``prefetch`` is the combined decode-step
     operand (``attention.build_decode_prefetch``), shared by every
     layer.  Returns (hidden (B, S, D) post-final-norm, caches).
     """
@@ -292,6 +354,20 @@ def _group(tree: Params, g: int) -> Params:
             for k, v in tree.items()}
 
 
+def prefill(params: Params, cfg: ModelConfig, tokens, *,
+            cache_len: Optional[int] = None):
+    """Process a prompt (B, S) into fresh ring / mamba caches of
+    capacity ``cache_len`` (S when None) on the params' device.  The
+    caches are bf16 whatever the compute dtype, as the JAX package's
+    ``prefill`` makes them (a mamba state ``h`` stays fp32).
+    Returns (next-token logits (B, 1, V), caches)."""
+    b, s = tokens.shape[:2]
+    caches = init_caches(cfg, b, cache_len or s, torch.bfloat16,
+                         device=params["embed"].device)
+    h, caches = forward(params, cfg, tokens, mode="prefill", caches=caches)
+    return unembed(params, cfg, h[:, -1:]), caches
+
+
 def prefill_paged(params: Params, cfg: ModelConfig, tokens, caches,
                   block_tables, last_index=None, *, q_offset=None,
                   insert_from=None):
@@ -316,12 +392,22 @@ def prefill_paged(params: Params, cfg: ModelConfig, tokens, caches,
 
 
 def decode_step(params: Params, cfg: ModelConfig, token, caches, pos, *,
-                block_tables):
-    """One decode step over the paged pool.  token (B, 1); pos (B,)
-    per-row positions (rows may sit at different positions).  The
-    combined block-table + lengths operand is built once here and
-    shared by every layer's paged-attention call.
+                block_tables=None):
+    """One decode step.  token (B, 1).  Without ``block_tables`` the
+    caches are ring / mamba caches and ``pos`` is the shared position of
+    the token (an int or a 1-element tensor).  With ``block_tables``
+    (B, M) the caches are the paged pool and ``pos`` (B,) holds per-row
+    positions (rows may sit at different positions); the combined
+    block-table + lengths operand is built once here and shared by every
+    layer's paged-attention call.
     Returns (logits (B, 1, V), caches)."""
+    if block_tables is None:
+        dev = params["embed"].device
+        pos = (pos.to(dev).long().reshape(1) if torch.is_tensor(pos)
+               else torch.full((1,), int(pos), dtype=torch.long, device=dev))
+        h, caches = forward(params, cfg, token, mode="decode", caches=caches,
+                            pos=pos)
+        return unembed(params, cfg, h), caches
     pos = torch.as_tensor(pos, device=block_tables.device).long().reshape(-1)
     prefetch = attn.build_decode_prefetch(block_tables, pos)
     h, caches = forward(params, cfg, token, mode="decode", caches=caches,

@@ -1,14 +1,17 @@
-"""Paged serving engine: prefill into a shared page pool, token-level
-continuous decode.
+"""Serving engine: the ring-cache ``generate`` and the paged path
+(prefill into a shared page pool, token-level continuous decode).
 
-Port of the paged path of ``repro.serving.engine``.  KV lives in a
-pool of (page_size)-token pages shared by all in-flight requests
-(``PagePool``); each request holds ceil(tokens / page_size) pages
-addressed through a block-table row, and a decode batch mixes requests
-at *different* positions.  Prefix sharing maps a resident prompt's
-pages into a new request, a cross-request logit cache serves repeat
-prompts with no device work, and a decode step that would write into a
-shared page copies it first (copy-on-write) inside the same step.
+Port of ``repro.serving.engine``.  ``generate`` is the classic
+fixed-shape path: one ring-buffer KV slab (or mamba state) per batch
+slot, every request of the batch at the same position.  On the paged
+path KV lives in a pool of (page_size)-token pages shared by all
+in-flight requests (``PagePool``); each request holds
+ceil(tokens / page_size) pages addressed through a block-table row, and
+a decode batch mixes requests at *different* positions.  Prefix sharing
+maps a resident prompt's pages into a new request, a cross-request
+logit cache serves repeat prompts with no device work, and a decode
+step that would write into a shared page copies it first
+(copy-on-write) inside the same step.
 
 Differences from the JAX engine:
 
@@ -20,10 +23,12 @@ Differences from the JAX engine:
 * Temperature > 0 draws each row's token from a ``torch.Generator``
   seeded from (the request's seed, the token's position): a row's token
   does not depend on its batch mates, as in the JAX engine, but the
-  stream differs from ``jax.random``'s.  Greedy decoding (temperature
-  0) is an exact argmax in both.
-* Not ported yet: the ring-cache ``generate``, the host-RAM tier, lazy
-  decode allocation, ``verify_step_batch`` and ``rollback_pages``.
+  stream differs from ``jax.random``'s.  ``generate`` seeds row i of
+  its batch from ``ServeConfig.seed + i`` the same way, where the JAX
+  engine draws the whole batch from one key per step.  Greedy decoding
+  (temperature 0) is an exact argmax in both.
+* Not ported yet: the host-RAM tier, lazy decode allocation,
+  ``verify_step_batch`` and ``rollback_pages``.
 """
 from __future__ import annotations
 
@@ -54,12 +59,17 @@ class ServeConfig:
 
 def _row_seed(seed: int, position: int) -> int:
     """Generator seed of the token sampled at ``position`` of a request
-    rooted at ``seed``: a function of the pair alone."""
-    return ((int(seed) & 0xFFFFFFFF) << 32) | (int(position) & 0xFFFFFFFF)
+    rooted at ``seed``: a hash of the pair alone.  Every bit depends on
+    both, because the CPU generator keeps only the low 32 bits of its
+    seed."""
+    digest = hashlib.blake2b(f"{int(seed)}:{int(position)}".encode(),
+                             digest_size=8).digest()
+    return int.from_bytes(digest, "little") >> 1
 
 
 class Engine:
-    """Paged prefill / decode for one model on one device."""
+    """Ring-cache generation and paged prefill / decode for one model on
+    one device."""
 
     def __init__(self, cfg: ModelConfig, params: Any, scfg: ServeConfig,
                  device: DeviceLike = None):
@@ -121,10 +131,15 @@ class Engine:
                 f"or shorten the request")
 
     def _sample_rows(self, logits, seeds, positions, temps=None) -> np.ndarray:
-        """Per-row sampling of logits (B, V): rows at temperature <= 0
-        take the argmax; a sampled row draws from a generator on the
-        logits' device seeded by (seeds[i], positions[i]), independent
-        of its batch mates.  Only the chosen ids reach the host."""
+        """Per-row sampling of logits (B, V) (see ``_pick``); only the
+        chosen ids reach the host."""
+        return self._pick(logits, seeds, positions, temps).cpu().numpy()
+
+    def _pick(self, logits, seeds, positions, temps=None) -> torch.Tensor:
+        """Per-row sampling of logits (B, V) into (B,) int32 ids on the
+        logits' device: rows at temperature <= 0 take the argmax; a
+        sampled row draws from a generator on the logits' device seeded
+        by (seeds[i], positions[i]), independent of its batch mates."""
         if temps is None:
             t = np.full((logits.shape[0],), self.scfg.temperature, np.float32)
         else:
@@ -136,7 +151,42 @@ class Engine:
                 _row_seed(seeds[i], positions[i]))
             probs = torch.softmax(logits[i].float() / float(t[i]), -1)
             ids[i] = torch.multinomial(probs, 1, generator=gen)[0]
-        return ids.cpu().numpy()
+        return ids
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def generate(self, prompts, *, max_new_tokens: int) -> Dict[str, Any]:
+        """Ring-cache generation for a batch at one shared position.
+        prompts: (B, P) int token ids (a tensor or an array).
+
+        Returns {tokens (B, P+N) on the engine's device, prefill_s,
+        decode_s, tokens_per_s}; the times run to a device synchronise.
+        """
+        if not torch.is_tensor(prompts):
+            prompts = torch.as_tensor(np.asarray(prompts))
+        prompts = prompts.to(self.device)
+        b, p = prompts.shape[:2]
+        self._check_capacity(p, max_new_tokens)
+        seeds = [self.scfg.seed + i for i in range(b)]
+        t0 = time.perf_counter()
+        logits, caches = tf.prefill(self.params, self.cfg, prompts,
+                                    cache_len=self.scfg.max_len)
+        tok = self._pick(logits[:, 0], seeds, [p] * b)
+        self._sync()
+        t1 = time.perf_counter()
+        out = [prompts, tok.reshape(b, 1).to(prompts.dtype)]
+        for i in range(max_new_tokens - 1):
+            logits, caches = tf.decode_step(self.params, self.cfg, out[-1],
+                                            caches, p + i)
+            nxt = self._pick(logits[:, 0], seeds, [p + i + 1] * b)
+            out.append(nxt.reshape(b, 1).to(prompts.dtype))
+        self._sync()
+        t2 = time.perf_counter()
+        return {"tokens": torch.cat(out, dim=1), "prefill_s": t1 - t0,
+                "decode_s": t2 - t1,
+                "tokens_per_s": b * max_new_tokens / max(t2 - t1, 1e-9)}
 
     # ------------------------------------------------------------------
     # Paged path: pool-backed caches, token-level continuous decode

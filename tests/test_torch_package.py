@@ -39,7 +39,9 @@ def test_scan_sees_the_whole_port():
     assert {"engine.py", "mux_server.py", "ops.py", "transformer.py",
             "flash_attention.py", "backend.py", "runtime.py", "request.py",
             "metrics.py", "batcher.py", "traffic.py", "tracer.py",
-            "gauges.py"} <= names
+            "gauges.py", "mamba.py", "selective_scan.py", "serve.py",
+            "falcon_mamba_7b.py"} <= names
+    assert (ROOT / "src" / "repro_torch" / "launch" / "serve.py") in FILES
     assert not _forbidden("repro_torch.kernels")
     assert _forbidden("repro.kernels") and _forbidden("jax.numpy")
 
@@ -51,6 +53,7 @@ def test_entry_points_default_to_cuda_and_refuse_without_it(monkeypatch):
 
     from repro_torch.configs import get_smoke_config
     from repro_torch.core.multiplexer import init_mux, init_token_backbone
+    from repro_torch.launch import serve
     from repro_torch.models import transformer as tf
     from repro_torch.serving.engine import Engine, ServeConfig
     from repro_torch.serving.mux_server import MuxServer
@@ -73,6 +76,9 @@ def test_entry_points_default_to_cuda_and_refuse_without_it(monkeypatch):
         lambda: init_mux(backbone=backbone, model_names=["a"],
                          costs={"a": 1.0}, meta_dim=4, proj_dim=2),
         lambda: MuxServer(mux, [1.0]),
+        lambda: tf.init_caches(cfg, 1, 8),
+        lambda: serve.main(["--smoke", "--tokens", "1"]),
+        lambda: serve.build_engine("falcon-mamba-7b", smoke=True, max_len=8),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
