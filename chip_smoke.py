@@ -9,7 +9,9 @@ Phases, each of which must pass:
 
 1. Build: compile every CUDA kernel of the port from ``csrc/`` (one
    nvcc per source, all at once) and print the build time and ptxas
-   resource lines.
+   resource lines; for K3's tensor-core variant
+   (``flash_attention_sm90.cu``) also its registers, dynamic shared
+   memory and spills at hd = vd = 128, where it must spill nothing.
 2. Kernels against their plain PyTorch versions on the card: K1
    ``paged_attention`` over float32 / bf16 / int8 pages, GQA groups
    g in {1, 2, 4, 8}, full / window / chunk / logit-cap / v_dim
@@ -18,9 +20,13 @@ Phases, each of which must pass:
    served shapes; K2 ``mux_score`` at the served shape and the
    reference sweep shapes; K3 ``flash_attention`` on the JAX sweep's
    five shapes, GQA g in {1, 2, 4, 8} with S and T off the tiles, hd
-   256, windows and chunks with fully masked rows in the first live
-   tile (each in fp32 and bf16), and the served prefill shapes (B=1,
-   S=T in {128, 448, 1024}, H=K in {16, 32}, hd 128, bf16); K4
+   256, hd < vd, windows and chunks with fully masked rows in the
+   first live tile, a block with an odd key-tile count (the 2-stage K/V
+   ring wraps an odd number of times), one visible key per row (window
+   1: the output must be that key's V row exactly) and two shapes
+   without the causal rule, each in fp32 (the SIMT variant) and bf16
+   (the tensor-core variant), and the served prefill shapes (B=1, S=T
+   in {128, 448, 1024}, H=K in {16, 32}, hd 128, bf16); K4
    ``selective_scan`` on the JAX sweep's three shapes, S and d_in off
    every tile, n in {4, 5, 8, 16, 64} (each with fp32 and bf16 x), a
    random start state h0, h0 chaining (two halves, the second from the
@@ -35,12 +41,15 @@ Phases, each of which must pass:
    x's dtype).  Each
    kernel is timed at the served shape (CUDA events; input copies
    rotated so the 50 MB L2 never holds the next call's operands)
-   beside its plain version and its bound; K3 also beside
-   ``scaled_dot_product_attention`` (timed only, never on the port's
-   path).  A tiny fp32 model's prefill (through K3) and teacher-forced
-   decode (through K1) on the card are held against the same model on
-   the CPU, and so are a tiny fp32 falcon-mamba's ``prefill`` (through
-   K4) and teacher-forced ring decode.
+   beside its plain version and its bound; K3 at every served prefill
+   shape, each beside ``scaled_dot_product_attention`` (timed only,
+   never on the port's path; both also timed as CUDA graphs, an extra
+   column), with the wrapper's host microseconds per call for each
+   variant, and its SIMT variant on fp32 copies at the largest shape.
+   A tiny fp32 model's prefill (through K3's SIMT variant) and
+   teacher-forced decode (through K1) on the card are held against the
+   same model on the CPU, and so are a tiny fp32 falcon-mamba's
+   ``prefill`` (through K4) and teacher-forced ring decode.
 3. The direct served path at full width: olmo-1b and codeqwen1.5-7b at
    their published configs (depth uncut) with random bf16 weights
    from a seeded ``torch.Generator``, bf16 page pools (page 64; 512
@@ -53,7 +62,9 @@ Phases, each of which must pass:
    ``decode_step_batch`` until each has 32 tokens.  Checks: each pool
    drains to zero pages, ``paged_attention`` launched num_layers x
    decode steps times on each engine, ``flash_attention`` num_layers x
-   whole-prompt prefills, ``mux_score`` at least once.
+   whole-prompt prefills, every one of them on the tensor-core variant
+   (the per-variant counts; likewise in phases 4-6), ``mux_score`` at
+   least once.
 4. The scheduler path on the same zoo, the serving entry point users
    call: ``PagedLLMScheduler`` over one ``InProcessBackend`` per
    engine, ``select_fn`` = the mux probe, whole-prompt prefill.  16
@@ -86,16 +97,17 @@ Phases, each of which must pass:
 
 Output: progress lines, then the ``{"kernels": [...]}`` JSON line (the
 launches are phase 4's for K1-K3 and phase 6's falcon-mamba run for K4),
-a JSON line of the direct path's per-request admission ms and decode
-tokens/s and, for phases 4 and 5, the launches, TTFT p50/p99 and decode
-tokens/s per model, a JSON line of phase 6's prefill ms, decode
-tokens/s, median decode step ms and launches per model (with
-``--profile`` also device busy ms of the prefill, K4's share of it, and
-of one decode step), the card's name
-and power limit (nvidia-smi), and as the last line ``{"ok": true,
-"device": {...}}``.  Any failed check raises: the run exits non-zero without
-that last line.  It needs one CUDA card and a checkout of the
-repository (it imports ``src/repro_torch``).
+a JSON line of K3's tensor-core variant's ptxas resources and its
+times at each served shape beside SDPA and the bound, a JSON line of
+the direct path's per-request admission ms and decode tokens/s and,
+for phases 4 and 5, the launches, TTFT p50/p99 and decode tokens/s per
+model, a JSON line of phase 6's prefill ms, decode tokens/s, median
+decode step ms and launches per model (with ``--profile`` also device
+busy ms of the prefill, K4's share of it, and of one decode step), the
+card's name and power limit (nvidia-smi), and as the last line
+``{"ok": true, "device": {...}}``.  Any failed check raises: the run
+exits non-zero without that last line.  It needs one CUDA card and a
+checkout of the repository (it imports ``src/repro_torch``).
 """
 from __future__ import annotations
 
@@ -116,6 +128,10 @@ SEED = 0
 BF16_TOL = 2e-2
 F32_PAGED_TOL = 1e-4
 F32_FLASH_TOL = 1e-4
+# K3 bf16, per element beside the 2e-2 above: |kernel - plain| <= 4e-3 +
+# 2e-2 |plain| (bf16 rounding of P and of the output is relative; the
+# absolute term covers entries near 0)
+BF16_FLASH_REL = (4e-3, 2e-2)
 F32_MUX_TOL = 1e-5
 SCAN_RTOL = SCAN_ATOL = 2e-5     # K4 in fp32 arithmetic, as the JAX sweep
 MODEL_TOL = 1e-3                 # fp32 logits, card vs CPU
@@ -149,6 +165,78 @@ def time_cuda(fn, iters: int, warmup: int = 3) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def time_cuda_graph(fn, iters: int, reps: int = 5) -> float:
+    """Mean ms per call of ``fn(i)``: ``iters`` calls captured in one CUDA
+    graph, replayed ``reps`` times between CUDA events — the device's
+    time for back-to-back calls without the host's per-call cost (an
+    extra column beside ``time_cuda``, never in its place)."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):              # warm up off the default stream
+        for i in range(3):
+            fn(i)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            fn(i)
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / (reps * iters)
+
+
+def host_us(fn, calls: int = 200) -> float:
+    """Host microseconds per call of ``fn(i)``: the time the calling
+    thread spends in it (it returns once the launch is queued; at a
+    short kernel and 200 calls the queue never fills, so no call waits
+    for the device)."""
+    import torch
+    for i in range(3):
+        fn(i)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for i in range(calls):
+        fn(i)
+    host = (time.perf_counter() - t) / calls * 1e6
+    torch.cuda.synchronize()
+    return host
+
+
+def check_sm90_resources() -> dict:
+    """K3's tensor-core variant at the served width (hd = vd = 128, the
+    ``<128>`` instantiation): ptxas's registers and spills from the build
+    log and the dynamic shared memory its launch asks for; it must spill
+    nothing."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import wgmma_smem_bytes
+    smem = wgmma_smem_bytes(128)                # builds the source if needed
+    lines = build.build_log("flash_attention_sm90").splitlines()
+    entry = [i for i, ln in enumerate(lines) if "Compiling entry" in ln
+             and "flash_attention_sm90_kernelILi128E" in ln]
+    check(len(entry) == 1, "no ptxas entry for the <128> instantiation of "
+          "flash_attention_sm90_kernel in the build log")
+    body = []
+    for ln in lines[entry[0] + 1:]:
+        if "Compiling entry" in ln:
+            break
+        if "registers" in ln or "spill" in ln:
+            body.append(ln.replace("ptxas info    :", "").strip())
+    text = "; ".join(body)
+    log(f"  flash_attention_sm90 <128>: {text}; dynamic shared memory "
+        f"{smem} bytes a block")
+    check("0 bytes spill stores, 0 bytes spill loads" in text,
+          f"flash_attention_sm90 at hd = vd = 128 spills: {text}")
+    return {"ptxas": text, "dynamic_smem_bytes": smem}
 
 
 # ---------------------------------------------------------------------------
@@ -380,36 +468,88 @@ FLASH_CASES = {
     # rows fully masked inside the first live tile
     "window masked rows": (1, 128, 128, 4, 1, 32, 32, 8, None, None),
     "chunk masked rows": (1, 200, 200, 4, 2, 64, 64, None, 40, None),
+    # hd < vd: the tensor-core variant pads both to 128, so K's second
+    # 64-column chunk lies wholly outside k and TMA fills it with zeros
+    "hd<vd": (1, 96, 96, 4, 2, 64, 128, None, None, None),
+    # the last q tile walks 5 key tiles: the 2-stage ring wraps oddly
+    "odd key tiles": (1, 320, 320, 2, 2, 128, 128, None, None, None),
+    # one visible key per row, S off the tiles, g = 2: P is the identity
+    # and out = V exactly
+    "one key per row": (1, 130, 130, 4, 2, 128, 128, 1, None, None),
 }
+# cases also run without the causal rule (every row sees every key)
+FLASH_NONCAUSAL = ("sweep gqa", "sweep kv>q vd<hd")
 # the page-padded prompt lengths of the served trace, B=1, bf16
 FLASH_SERVED = [(1, s, s, h, h, 128, 128, None, None, None)
                 for h in (16, 32) for s in (128, 448, 1024)]
 
 
 def check_flash_attention(dev) -> float:
-    """K3 against its plain version over the cases above (fp32 and
-    bf16) and the served shapes (bf16); returns the max error."""
+    """K3 against its plain version over the cases above (fp32: the
+    SIMT variant, bf16: the tensor-core variant; the causal rule, and
+    without it for ``FLASH_NONCAUSAL``) and the served shapes (bf16).
+    Every bf16 element is also held to ``BF16_FLASH_REL`` beside its
+    plain value, which a kernel that drops or repeats one key tile of a
+    long row fails.  With one visible key per row the output must be
+    that key's V row, bit for bit.  Each call counts one launch, under
+    the variant the plan names, in a counter of its own (not the main
+    path's).  Returns the max error."""
     import torch
     from repro_torch.kernels.flash_attention import (flash_attention_cuda,
-                                                     flash_attention_plain)
+                                                     flash_attention_plain,
+                                                     flash_plan,
+                                                     wgmma_block_k)
     gen = torch.Generator().manual_seed(SEED)
-    cases = [(n, c, d) for n, c in FLASH_CASES.items()
-             for d in (torch.float32, torch.bfloat16)]
-    cases += [(f"served H={c[3]} S={c[1]}", c, torch.bfloat16)
+    dtypes = (torch.float32, torch.bfloat16)
+    cases = [(n, c, d, True) for n, c in FLASH_CASES.items() for d in dtypes]
+    cases += [(f"{n} non-causal", FLASH_CASES[n], d, False)
+              for n in FLASH_NONCAUSAL for d in dtypes]
+    cases += [(f"served H={c[3]} S={c[1]}", c, torch.bfloat16, True)
               for c in FLASH_SERVED]
+    # the odd case's last q tile sees keys 0 .. S-1 (no window or chunk)
+    s_odd = FLASH_CASES["odd key tiles"][1]
+    odd_walk = (s_odd - 1) // wgmma_block_k() + 1
+    check(odd_walk % 2 == 1 and odd_walk > 2,
+          f"K3 odd key tiles: the last q tile walks {odd_walk} key tiles, "
+          f"not an odd number above the ring's 2 stages")
+    rel_abs, rel = BF16_FLASH_REL
     worst = 0.0
-    for name, case, dtype in cases:
+    for name, case, dtype, causal in cases:
         b, s, t, h, kk, hd, vd, window, chunk, cap = case
         q, k, v = flash_inputs(gen, dev, b, s, t, h, kk, hd, vd, dtype)
-        kw = dict(causal=True, window=window, chunk=chunk, logit_cap=cap)
-        got = flash_attention_cuda(q, k, v, **kw)
+        kw = dict(causal=causal, window=window, chunk=chunk, logit_cap=cap)
+        plan = flash_plan(q.shape, k.shape, v.shape, dtype, causal=causal,
+                          window=window, chunk=chunk)
+        check(plan.variant == ("simt" if dtype == torch.float32 else "wgmma"),
+              f"K3 {name}: {dtype} planned on the {plan.variant} variant")
+        counts = {"flash_attention": 0, "flash_attention_wgmma": 0,
+                  "flash_attention_simt": 0}
+        got = flash_attention_cuda(q, k, v, counts=counts, **kw)
         torch.cuda.synchronize()
+        check(counts["flash_attention"] == 1
+              and counts["flash_attention_" + plan.variant] == 1
+              and sum(counts.values()) == 2,
+              f"K3 {name}: the wrapper counted {counts}, not one launch "
+              f"of the {plan.variant} variant")
         want = flash_attention_plain(q, k, v, **kw)
-        err = (got.float() - want.float()).abs().max().item()
+        diff = (got.float() - want.float()).abs()
+        err = diff.max().item()
         tol = F32_FLASH_TOL if dtype == torch.float32 else BF16_TOL
         dname = "float32" if dtype == torch.float32 else "bf16"
-        log(f"K3 {name:20s} {dname:7s} max_err={err:.3e} tol={tol:g}")
+        ratio = (diff / (rel_abs + rel * want.float().abs())).max().item()
+        log(f"K3 {name:24s} {dname:7s} {plan.variant:5s} max_err={err:.3e} "
+            f"tol={tol:g}" + (f" rel_ratio={ratio:.3f}"
+                              if dtype == torch.bfloat16 else ""))
         check(err <= tol, f"K3 {name} {dname}: max_err {err:.3e} > {tol:g}")
+        if dtype == torch.bfloat16:
+            check(ratio <= 1.0,
+                  f"K3 {name} bf16: an element is {ratio:.3f}x its limit "
+                  f"{rel_abs:g} + {rel:g} |plain|")
+        if window == 1:
+            check(s == t and torch.equal(got, v.repeat_interleave(h // kk,
+                                                                  dim=2)),
+                  f"K3 {name} {dname}: one visible key per row, but the "
+                  f"output is not that key's V row")
         worst = max(worst, err)
     return worst
 
@@ -427,43 +567,89 @@ def flash_bound_ms(s, t, h, kk, hd, vd, elem) -> tuple:
 
 
 def time_flash_attention(dev) -> dict:
-    """K3 at the largest served shape (codeqwen1.5-7b, S = T = 1024,
-    H = K = 32, hd = 128, bf16) beside its plain version, its bound and
-    one library call (``scaled_dot_product_attention(is_causal=True)``,
+    """K3 at every served prefill shape (``FLASH_SERVED``: B=1, S=T in
+    {128, 448, 1024}, H=K in {16, 32}, hd 128, bf16, causal: the
+    tensor-core variant) beside its bound, its plain version and one
+    library call (``scaled_dot_product_attention(is_causal=True)``,
     where S == T makes its bottom-right causal rule equal the kernel's
-    top-left one; timed here only, never on the port's path), and the
-    model's ``blocked_attention`` on the card (what the whole-prompt
-    prefill ran before K3; not a plain version of the kernel, which
-    scales q in fp32).  Three input copies (100 MB) rotate so the L2
-    does not hold the next call's operands."""
+    top-left one; timed here only, never on the port's path).  ``ms``
+    and ``library_ms`` are ``time_cuda`` times (CUDA events around calls
+    made one after another from Python, the method of every earlier
+    row); ``graph_ms`` and ``library_graph_ms`` time the same calls
+    captured in a CUDA graph, an extra column.  Enough input copies
+    rotate (at least 3, at least 150 MB) that the L2 does not hold the
+    next call's operands.  At the largest shape (codeqwen1.5-7b, S =
+    1024, H = 32) also the model's ``blocked_attention`` on the card
+    (what the whole-prompt prefill ran before K3; not a plain version
+    of the kernel, which scales q in fp32) and the SIMT variant on fp32
+    copies of the same inputs; at the smallest, the wrapper's host
+    microseconds per call for each variant.  Returns the largest
+    shape's numbers and a row per shape."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                      flash_attention_plain)
     from repro_torch.models.attention import blocked_attention
-    b, s, t, h, kk, hd, vd = 1, 1024, 1024, 32, 32, 128, 128
     gen = torch.Generator().manual_seed(SEED + 7)
+    rows = []
+    for b, s, t, h, kk, hd, vd, *_ in FLASH_SERVED:
+        copy_bytes = 2 * (s * h * hd + t * kk * (hd + vd) + s * h * vd)
+        n = max(3, -(-150_000_000 // copy_bytes))
+        copies = [flash_inputs(gen, dev, b, s, t, h, kk, hd, vd,
+                               torch.bfloat16) for _ in range(n)]
+        heads_first = [[x.transpose(1, 2) for x in c] for c in copies]
+
+        def kernel(i):
+            return flash_attention_cuda(*copies[i % n])
+
+        def sdpa(i):
+            return F.scaled_dot_product_attention(*heads_first[i % n],
+                                                  is_causal=True)
+        iters = max(50, 2 * n)
+        row = {"S": s, "H": h, "copies": n,
+               "ms": time_cuda(kernel, iters=iters),
+               "library_ms": time_cuda(sdpa, iters=iters),
+               "graph_ms": time_cuda_graph(kernel, iters=iters),
+               "library_graph_ms": time_cuda_graph(sdpa, iters=iters),
+               "plain_ms": time_cuda(
+                   lambda i: flash_attention_plain(*copies[i % n]),
+                   iters=10)}
+        row["bound_ms"], row["bound_by"] = flash_bound_ms(s, t, h, kk, hd,
+                                                          vd, 2)
+        row["sdpa_vs_kernel_max_abs"] = (
+            sdpa(0).transpose(1, 2).float() - kernel(0).float()
+        ).abs().max().item()
+        log(f"K3 time at B=1 S=T={s} H={h} hd=128 bf16 (wgmma): kernel "
+            f"{row['ms']:.4f} ms, sdpa {row['library_ms']:.4f} ms "
+            f"({row['ms'] / row['library_ms']:.2f}x); as CUDA graphs "
+            f"{row['graph_ms']:.4f} / {row['library_graph_ms']:.4f} ms; "
+            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}); plain "
+            f"{row['plain_ms']:.4f} ms; |sdpa - kernel| "
+            f"{row['sdpa_vs_kernel_max_abs']:.3e}")
+        if not rows:                # the smallest shape: the host's share
+            fp32 = [[x.float() for x in c] for c in copies]
+            row["host_us_wgmma"] = host_us(kernel)
+            row["host_us_simt"] = host_us(
+                lambda i: flash_attention_cuda(*fp32[i % n]))
+            log(f"K3 wrapper host time per call at S=T={s} H={h}: wgmma "
+                f"(bf16) {row['host_us_wgmma']:.1f} us, SIMT (fp32) "
+                f"{row['host_us_simt']:.1f} us")
+        rows.append(row)
+    big = rows[-1]
+    b, s, t, h, kk, hd, vd, *_ = FLASH_SERVED[-1]
     copies = [flash_inputs(gen, dev, b, s, t, h, kk, hd, vd, torch.bfloat16)
               for _ in range(3)]
-    n = len(copies)
-    ms = time_cuda(lambda i: flash_attention_cuda(*copies[i % n]), iters=50)
-    plain_ms = time_cuda(lambda i: flash_attention_plain(*copies[i % n]),
-                         iters=10)
-    blocked_ms = time_cuda(lambda i: blocked_attention(*copies[i % n]),
-                           iters=10)
-    heads_first = [[x.transpose(1, 2) for x in c] for c in copies]
-    lib_ms = time_cuda(lambda i: F.scaled_dot_product_attention(
-        *heads_first[i % n], is_causal=True), iters=50)
-    lib = F.scaled_dot_product_attention(*heads_first[0], is_causal=True)
-    lib_err = (lib.transpose(1, 2).float()
-               - flash_attention_cuda(*copies[0]).float()).abs().max().item()
-    bound, bound_by = flash_bound_ms(s, t, h, kk, hd, vd, 2)
-    log(f"K3 time at B=1 S=T=1024 H=32 hd=128 bf16: kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, blocked_attention {blocked_ms:.4f} ms, "
-        f"library (sdpa) {lib_ms:.4f} ms (|sdpa - kernel| {lib_err:.3e}), "
-        f"bound {bound:.4f} ms ({bound_by})")
-    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-            "bound_ms": bound, "bound_by": bound_by}
+    big["blocked_attention_ms"] = time_cuda(
+        lambda i: blocked_attention(*copies[i % 3]), iters=10)
+    fp32 = [[x.float() for x in c] for c in copies]
+    big["simt_fp32_ms"] = time_cuda(
+        lambda i: flash_attention_cuda(*fp32[i % 3]), iters=10)
+    log(f"K3 at S=T={s} H={h}: blocked_attention "
+        f"{big['blocked_attention_ms']:.4f} ms; SIMT variant on fp32 "
+        f"copies {big['simt_fp32_ms']:.4f} ms")
+    return {**{k: big[k] for k in ("ms", "plain_ms", "library_ms",
+                                   "bound_ms", "bound_by")},
+            "shapes": rows}
 
 
 def check_model_against_cpu(dev) -> float:
@@ -503,10 +689,12 @@ def check_model_against_cpu(dev) -> float:
     log(f"tiny model on the card vs CPU: max logit diff {worst:.3e} "
         f"tol={MODEL_TOL:g}; card launches {ops.launches}")
     check(worst <= MODEL_TOL, f"tiny model card vs CPU: {worst:.3e}")
-    check(ops.launches["flash_attention"] == cfg.num_layers,
+    check(ops.launches["flash_attention"] == cfg.num_layers
+          == ops.launches["flash_attention_simt"],
           f"tiny model: flash_attention launched "
-          f"{ops.launches['flash_attention']} times for one prefill of "
-          f"{cfg.num_layers} layers")
+          f"{ops.launches['flash_attention']} times "
+          f"({ops.launches['flash_attention_simt']} on the SIMT variant) for "
+          f"one fp32 prefill of {cfg.num_layers} layers")
     check(ops.launches["paged_attention"] == cfg.num_layers * 12,
           f"tiny model: paged_attention launched "
           f"{ops.launches['paged_attention']} times for 12 decode steps")
@@ -999,7 +1187,7 @@ def profile_prefill(eng, rng, n_tokens: int, repeats: int = 3) -> dict:
         admit()
     rows = _device_rows(prof)
     busy = sum(r[0] for r in rows)
-    k3 = sum(r[0] for r in rows if "flash_attention_kernel" in r[2])
+    k3 = sum(r[0] for r in rows if "flash_attention" in r[2])
     step = float(np.median(wall))
     return {"model": eng.cfg.name, "prompt_tokens": n_tokens,
             "unprofiled_ms": wall, "device_busy_ms": busy,
@@ -1130,7 +1318,8 @@ def serve_ring(dev, arch, *, prompt_len, new_tokens, batch=2, step_times=0,
 
 def check_ring(run, *, scan: bool) -> None:
     """Checks of a ``serve_ring`` run: the output shapes, the prompts
-    kept and every id in the vocabulary, and each prefill launched the scan (mamba) or flash attention (attention) in
+    kept and every id in the vocabulary, and each prefill launched the
+    scan (mamba) or flash attention's tensor-core variant (attention) in
     every layer and nothing else; no paged decode kernel ran."""
     name, layers = run["model"], run["layers"]
     want_shape = (run["batch"], run["prompt_len"] + run["new_tokens"])
@@ -1141,9 +1330,10 @@ def check_ring(run, *, scan: bool) -> None:
           f"{name}: generate changed its prompts or made ids outside the "
           f"vocabulary")
     got = run["launches"]
+    k3 = 0 if scan else layers * run["prefills"]
     want = {"selective_scan": layers * run["prefills"] if scan else 0,
-            "flash_attention": 0 if scan else layers * run["prefills"],
-            "paged_attention": 0, "mux_score": 0}
+            "flash_attention": k3, "flash_attention_wgmma": k3,
+            "flash_attention_simt": 0, "paged_attention": 0, "mux_score": 0}
     check(run["prefills"] > 0 and got == want,
           f"{name}: launches {got} for {run['prefills']} prefills of "
           f"{layers} layers, expected {want}")
@@ -1170,6 +1360,16 @@ def _watch(sample_rows, on_logits):
     return wrapped
 
 
+def check_wgmma_prefills(tag, launches) -> None:
+    """Every K3 launch of a bf16 served path took the tensor-core
+    variant (the per-variant counts of ``ops.launches``)."""
+    check(launches["flash_attention_wgmma"] == launches["flash_attention"]
+          and launches["flash_attention_simt"] == 0,
+          f"{tag}: of {launches['flash_attention']} flash_attention "
+          f"launches, {launches['flash_attention_wgmma']} on the tensor-core "
+          f"variant and {launches['flash_attention_simt']} on the SIMT one")
+
+
 def check_served(stats, cfgs) -> None:
     by_model = {e["model"]: e for e in stats["engines"]}
     k3_want = 0
@@ -1188,6 +1388,7 @@ def check_served(stats, cfgs) -> None:
           f"direct path: flash_attention launched "
           f"{stats['launches']['flash_attention']} times, expected "
           f"layers x whole-prompt prefills = {k3_want}")
+    check_wgmma_prefills("direct path", stats["launches"])
     check(stats["launches"]["mux_score"] >= 1, "mux_score never launched")
     check(any(e["cow"] > 0 for e in stats["engines"]),
           "no copy-on-write ran")
@@ -1231,6 +1432,7 @@ def check_scheduler(run, prompts, cfgs, new_tokens) -> None:
     check(got["flash_attention"] == k3_want > 0,
           f"{tag}: flash_attention launched {got['flash_attention']} "
           f"times, expected layers x whole-prompt prefills = {k3_want}")
+    check_wgmma_prefills(tag, got)
     check(got["paged_attention"] == k1_want > 0,
           f"{tag}: paged_attention launched {got['paged_attention']} "
           f"times, expected layers x decode steps = {k1_want}")
@@ -1281,6 +1483,7 @@ def main(argv) -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name} ({secs:.1f} s): {line.strip()}")
+    sm90 = check_sm90_resources()
 
     k1_err = check_paged_attention(dev)
     k1 = time_paged_attention(dev)
@@ -1382,7 +1585,7 @@ def main(argv) -> int:
          "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
          "bound_by": k2["bound_by"], "library_ms": None},
         {"name": "flash_attention", "route": "cuda",
-         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "source": "src/repro_torch/csrc/flash_attention_sm90.cu",
          "replaces": "src/repro/kernels/flash_attention.py:157",
          "launches": launches["flash_attention"],
          "max_abs_err": k3_err, "ms": k3["ms"],
@@ -1400,6 +1603,8 @@ def main(argv) -> int:
     # run (K4); plain_ms is the plain PyTorch version's time, no yardstick
     # of speed
     print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"flash_attention_sm90": sm90,
+                      "flash_attention_by_shape": k3["shapes"]}), flush=True)
     print(json.dumps({
         "direct": {
             "launches": stats["launches"],

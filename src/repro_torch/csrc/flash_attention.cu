@@ -1,16 +1,19 @@
-// Flash attention over a whole prompt (prefill) for Hopper (sm_90a).
+// Flash attention over a whole prompt (prefill) in fp32 for Hopper
+// (sm_90a): the SIMT variant of K3.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py::
-// flash_attention (body _attn_kernel).  Multi-token attention of q
-// (B, S, H, hd) over k (B, T, K, hd) and v (B, T, K, vd), H % K == 0,
-// out (B, S, H, vd) in q's dtype; fp32 or bf16 operands, fp32
-// arithmetic throughout.
+// flash_attention (body _attn_kernel) for fp32 operands; bf16 operands
+// go to csrc/flash_attention_sm90.cu (the tensor-core variant).  The
+// wrapper picks the variant by dtype (kernels/flash_attention.py::
+// flash_plan).  Multi-token attention of q (B, S, H, hd) over k
+// (B, T, K, hd) and v (B, T, K, vd), H % K == 0, out (B, S, H, vd), all
+// fp32, fp32 arithmetic throughout.
 //
-// Semantics carried over from the TPU kernel: q is scaled in fp32 after
-// the upcast; an optional tanh logit cap applies before masking; the
-// causal alignment is TOP-LEFT (query i sees keys <= i, whatever T is —
-// not the bottom-right rule of library flash attention when S != T);
-// then kv < T, the window (kv > q - window) and the chunk floor
+// Semantics carried over from the TPU kernel: q is scaled in fp32; an
+// optional tanh logit cap applies before masking; the causal alignment
+// is TOP-LEFT (query i sees keys <= i, whatever T is — not the
+// bottom-right rule of library flash attention when S != T); then
+// kv < T, the window (kv > q - window) and the chunk floor
 // (kv >= (q / chunk) * chunk); an online softmax in fp32 with the
 // denominator clamped at 1e-30.
 //
@@ -30,20 +33,16 @@
 // Work split: 256 threads; thread t owns row t / 4 of the block and,
 // with the three other lanes of its row, 8 of the 32 keys of each tile
 // (scores) and a quarter of the output features (P V, float4 quads).
-// Q, the K tile and the V tile sit in shared memory as fp32 (K and Q
-// rows padded by 4 floats so float4 reads of four neighbouring rows hit
+// Q, the K tile and the V tile sit in shared memory (K and Q rows
+// padded by 4 floats so float4 reads of four neighbouring rows hit
 // distinct banks); the accumulator stays in registers.
 //
-// What bounds it: causal prefill at S = T does ~2*S*S*(hd + vd)/2
-// FLOPs per head and must move q, k, v and out once, ~2*S*(hd + vd)*2
-// bytes per head in bf16: S/2 FLOPs per byte, so at the served
-// lengths (S <= 1024) the bytes bound (3.35 TB/s) and the bf16
-// tensor-core bound (989 TFLOP/s) are within a factor of two of each
-// other.  This first version reaches neither: it does its products
-// with fp32 FMAs from shared memory (no mma.sync / wgmma, no TMA or
-// cp.async pipelining), so the FMA rate bounds it; those are later
-// work.
-#include <cuda_bf16.h>
+// What bounds it: fp32 operands leave the tensor cores to TF32 at best,
+// which would not hold the fp32 checks' 1e-4, so this variant does its
+// products with fp32 FMAs from shared memory (no cp.async / TMA
+// pipelining); the FMA rate (67 TFLOP/s) bounds it.  It serves the fp32
+// checks and fp32 models; the served bf16 prefills take the
+// tensor-core variant.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -57,27 +56,13 @@ constexpr int kBlockK = 32;                       // keys per KV tile
 constexpr int kKeysPerLane = kBlockK / kLanesPerRow;  // 8
 constexpr int kPStride = kBlockK + 1;             // P rows on distinct banks
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
 // kMaxQuads: float4 output quads per lane (vd <= 16 * kMaxQuads)
-template <typename T, int kMaxQuads>
+template <int kMaxQuads>
 __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
-    const T* __restrict__ q,     // (B, S, H, hd)
-    const T* __restrict__ k,     // (B, T, K, hd)
-    const T* __restrict__ v,     // (B, T, K, vd)
-    T* __restrict__ out,         // (B, S, H, vd)
+    const float* __restrict__ q,     // (B, S, H, hd)
+    const float* __restrict__ k,     // (B, T, K, hd)
+    const float* __restrict__ v,     // (B, T, K, vd)
+    float* __restrict__ out,         // (B, S, H, vd)
     int seq_len, int kv_len, int num_kv_heads, int g, int hd, int vd,
     int block_q, float scale, float logit_cap, int causal, int window,
     int chunk) {
@@ -103,15 +88,15 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
   const bool row_ok = r < rows && q_pos < seq_len;
   const int nquads = vd4 / 4;
 
-  // q tile, scaled in fp32 after the upcast; unused rows are zeros
+  // q tile, scaled; unused rows are zeros
   for (int i = tid; i < kRows * hd4; i += kThreads) {
     const int rr = i / hd4, d = i - rr * hd4;
     const int qi = q0 + rr % block_q;
     float x = 0.f;
     if (rr < rows && qi < seq_len && d < hd) {
       const int head = kh * g + rr / block_q;
-      x = to_float(q[((static_cast<int64_t>(b) * seq_len + qi) * num_heads
-                      + head) * hd + d]) * scale;
+      x = q[((static_cast<int64_t>(b) * seq_len + qi) * num_heads + head)
+            * hd + d] * scale;
     }
     q_s[rr * qk_stride + d] = x;
   }
@@ -134,8 +119,10 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
 
   const int64_t tok_k = static_cast<int64_t>(num_kv_heads) * hd;
   const int64_t tok_v = static_cast<int64_t>(num_kv_heads) * vd;
-  const T* k_base = k + static_cast<int64_t>(b) * kv_len * tok_k + kh * hd;
-  const T* v_base = v + static_cast<int64_t>(b) * kv_len * tok_v + kh * vd;
+  const float* k_base = k + static_cast<int64_t>(b) * kv_len * tok_k
+                         + kh * hd;
+  const float* v_base = v + static_cast<int64_t>(b) * kv_len * tok_v
+                         + kh * vd;
 
   for (int t0 = (kv_lo / kBlockK) * kBlockK; t0 <= kv_hi; t0 += kBlockK) {
     __syncthreads();    // the previous tile's K/V/P reads are done
@@ -143,13 +130,13 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
       const int j = i / hd4, d = i - j * hd4;
       const int kv = t0 + j;
       k_s[j * qk_stride + d] =
-          (kv < kv_len && d < hd) ? to_float(k_base[kv * tok_k + d]) : 0.f;
+          (kv < kv_len && d < hd) ? k_base[kv * tok_k + d] : 0.f;
     }
     for (int i = tid; i < kBlockK * vd4; i += kThreads) {
       const int j = i / vd4, d = i - j * vd4;
       const int kv = t0 + j;
       v_s[j * vd4 + d] =
-          (kv < kv_len && d < vd) ? to_float(v_base[kv * tok_v + d]) : 0.f;
+          (kv < kv_len && d < vd) ? v_base[kv * tok_v + d] : 0.f;
     }
     __syncthreads();
 
@@ -235,19 +222,19 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
   if (!row_ok) return;
   const float inv = 1.f / fmaxf(l_run, 1e-30f);
   const int head = kh * g + r / block_q;
-  T* o_row = out + ((static_cast<int64_t>(b) * seq_len + q_pos) * num_heads
-                    + head) * vd;
+  float* o_row = out + ((static_cast<int64_t>(b) * seq_len + q_pos)
+                        * num_heads + head) * vd;
 #pragma unroll
   for (int i = 0; i < kMaxQuads; ++i) {
     const int c = 4 * (lane4 + 4 * i);
-    if (c < vd) o_row[c] = from_float<T>(acc[i].x * inv);
-    if (c + 1 < vd) o_row[c + 1] = from_float<T>(acc[i].y * inv);
-    if (c + 2 < vd) o_row[c + 2] = from_float<T>(acc[i].z * inv);
-    if (c + 3 < vd) o_row[c + 3] = from_float<T>(acc[i].w * inv);
+    if (c < vd) o_row[c] = acc[i].x * inv;
+    if (c + 1 < vd) o_row[c + 1] = acc[i].y * inv;
+    if (c + 2 < vd) o_row[c + 2] = acc[i].z * inv;
+    if (c + 3 < vd) o_row[c + 3] = acc[i].w * inv;
   }
 }
 
-template <typename T, int kMaxQuads>
+template <int kMaxQuads>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    int batch, int seq_len, int kv_len, int num_kv_heads,
                    int g, int hd, int vd, int block_q, float scale,
@@ -259,7 +246,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
       (static_cast<size_t>(kRows + kBlockK) * (hd4 + 4)
        + static_cast<size_t>(kBlockK) * vd4
        + static_cast<size_t>(kRows) * kPStride);
-  auto kernel = flash_attention_kernel<T, kMaxQuads>;
+  auto kernel = flash_attention_kernel<kMaxQuads>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -268,39 +255,31 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   }
   const dim3 grid((seq_len + block_q - 1) / block_q, num_kv_heads, batch);
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), seq_len, kv_len,
-      num_kv_heads, g, hd, vd, block_q, scale, logit_cap, causal, window,
-      chunk);
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), seq_len,
+      kv_len, num_kv_heads, g, hd, vd, block_q, scale, logit_cap, causal,
+      window, chunk);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype codes: 0 = float32, 1 = bfloat16 (q, k, v and out alike).
-// g * block_q <= 64, hd <= 256, vd <= 256 (the wrapper checks).
-// logit_cap <= 0, window <= 0 and chunk <= 0 mean "off".
-// Returns the cudaError_t of the launch (0 = success).
+// fp32 q, k, v and out; g * block_q <= 64, hd <= 256, vd <= 256 (the
+// wrapper's plan checks it).  logit_cap <= 0, window <= 0 and chunk <= 0
+// mean "off".  Returns the cudaError_t of the launch (0 = success).
 extern "C" int flash_attention_launch(
-    int dtype, const void* q, const void* k, const void* v, void* out,
-    int batch, int seq_len, int kv_len, int num_kv_heads, int g, int hd,
-    int vd, int block_q, float scale, float logit_cap, int causal,
-    int window, int chunk, void* stream) {
+    const void* q, const void* k, const void* v, void* out, int batch,
+    int seq_len, int kv_len, int num_kv_heads, int g, int hd, int vd,
+    int block_q, float scale, float logit_cap, int causal, int window,
+    int chunk, void* stream) {
   if (g * block_q > kRows || hd > 256 || vd > 256 || block_q < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto st = static_cast<cudaStream_t>(stream);
-#define FA_LAUNCH(T, Q)                                                     \
-  return static_cast<int>(launch<T, Q>(                                     \
-      q, k, v, out, batch, seq_len, kv_len, num_kv_heads, g, hd, vd,        \
-      block_q, scale, logit_cap, causal, window, chunk, st))
-  if (dtype == 0) {
-    if (vd <= 128) FA_LAUNCH(float, 8);
-    FA_LAUNCH(float, 16);
-  }
-  if (dtype == 1) {
-    if (vd <= 128) FA_LAUNCH(__nv_bfloat16, 8);
-    FA_LAUNCH(__nv_bfloat16, 16);
-  }
-#undef FA_LAUNCH
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (vd <= 128)
+    return static_cast<int>(launch<8>(
+        q, k, v, out, batch, seq_len, kv_len, num_kv_heads, g, hd, vd,
+        block_q, scale, logit_cap, causal, window, chunk, st));
+  return static_cast<int>(launch<16>(
+      q, k, v, out, batch, seq_len, kv_len, num_kv_heads, g, hd, vd, block_q,
+      scale, logit_cap, causal, window, chunk, st));
 }

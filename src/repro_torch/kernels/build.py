@@ -6,9 +6,11 @@ Each ``src/repro_torch/csrc/<name>.cu`` compiles at first use with
 ``build/kernels/`` at the repository root (listed in ``.gitignore``),
 and loads with ``ctypes``: pointers and the stream pass as
 ``c_void_p``, and each C entry point returns the launch's
-``cudaGetLastError()`` for its wrapper to raise on.  A library's file
-name carries a hash of its source and flags, so an edited source never
-loads a stale build.  Only sources inside the repository are built.
+``cudaGetLastError()`` for its wrapper to raise on.  The compiler's
+output (``-Xptxas -v``: registers, shared memory, spills per kernel) is
+kept beside each library (:func:`build_log`).  A library's file name
+carries a hash of its source and flags, so an edited source never loads
+a stale build.  Only sources inside the repository are built.
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ from typing import Dict, Tuple
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("paged_attention", "mux_score", "flash_attention",
-           "selective_scan")
+           "flash_attention_sm90", "selective_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -66,6 +68,13 @@ def build_all() -> Dict[str, Tuple[float, str]]:
         return _build_locked(list(SOURCES))
 
 
+def build_log(name: str) -> str:
+    """The compiler's output for the current build of ``csrc/<name>.cu``,
+    or "" where there is none."""
+    log = library_path(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
+
+
 def _build_locked(names) -> Dict[str, Tuple[float, str]]:
     todo = [n for n in names if not library_path(n).exists()]
     if not todo:
@@ -87,6 +96,7 @@ def _build_locked(names) -> Dict[str, Tuple[float, str]]:
             failed.append(f"{name}:\n{log}")
             tmp.unlink(missing_ok=True)
         else:
+            library_path(name).with_suffix(".log").write_text(log)
             os.replace(tmp, library_path(name))
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))

@@ -1,32 +1,38 @@
-"""Whole-prompt flash attention: the CUDA kernel's launcher and its
+"""Whole-prompt flash attention: the CUDA kernels' launcher and their
 plain PyTorch version.
 
 Port of ``repro.kernels.flash_attention``.  The TPU kernel it replaces
-(``flash_attention`` / ``_attn_kernel``) becomes
-``csrc/flash_attention.cu`` for sm_90a — see that file for the design
-and what bounds it.  :func:`flash_attention_cuda` checks and launches
-it; :func:`flash_attention_plain` is the same function in plain
-PyTorch.  Callers go through ``repro_torch.kernels.ops.attention``,
-which picks one of the two by the tensors' device (and runs the
-model's own ``blocked_attention`` on the CPU, as the JAX dispatcher
-does off the TPU).
+(``flash_attention`` / ``_attn_kernel``) has two variants on the card,
+chosen by dtype in :func:`flash_plan`: bf16 operands go to the
+tensor-core variant ``csrc/flash_attention_sm90.cu`` (``wgmma``
+products fed by a TMA / mbarrier ring), fp32 operands to the SIMT
+variant ``csrc/flash_attention.cu`` (fp32 FMAs) — see those files for
+the designs and what bounds them.  :func:`flash_attention_cuda` checks
+and launches the planned variant; :func:`flash_attention_plain` is the
+same function in plain PyTorch.  Callers go through
+``repro_torch.kernels.ops.attention``, which picks one of the two by
+the tensors' device (and runs the model's own ``blocked_attention`` on
+the CPU, as the JAX dispatcher does off the TPU).
 
 Causal alignment is top-left: query i sees keys <= i whatever T is.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
-from typing import Optional
+from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.kernels import build, ref
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-MAX_ROWS = 64                # csrc kRows: g * block_q per block
-MAX_HEAD_DIM = 256           # csrc: 16 float4 quads per lane
+MAX_ROWS = 64                  # csrc kRows: g * block_q per block
+MAX_HEAD_DIM = 256             # SIMT: 16 float4 quads a lane; wgmma: 4 chunks
+WGMMA_WIDTHS = (64, 128, 256)  # padded head widths of the wgmma variant
+MAX_Q_TILES = 65535            # wgmma: q tiles run along grid.y
+_VARIANTS = {torch.bfloat16: "wgmma", torch.float32: "simt"}
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True,
@@ -70,83 +76,163 @@ def rows_without_keys(seq_len: int, kv_len: int, *, causal: bool,
     return int((lo > hi).sum())
 
 
-_lib = None
+class FlashPlan(NamedTuple):
+    """What a launch on the card takes from the plan.  ``variant`` is
+    "wgmma" (bf16, ``csrc/flash_attention_sm90.cu``) or "simt" (fp32,
+    ``csrc/flash_attention.cu``); a block serves ``group`` heads x
+    ``block_q`` positions of one KV head.  For the wgmma variant,
+    ``width`` is the one padded width q, k and v are laid out at in
+    shared memory (TMA zero-fills the rest), and ``longest_first`` has
+    its blocks take the q tiles from the last, which under the causal
+    rule sees the most keys.  The SIMT variant pads inside its launch
+    and counts its tiles up (``width`` 0, ``longest_first`` False)."""
+    variant: str
+    group: int
+    block_q: int
+    width: int
+    longest_first: bool
 
 
-def _launcher():
-    global _lib
-    if _lib is None:
-        lib = build.load("flash_attention")
-        fn = lib.flash_attention_launch
+def _refuse(msg: str):
+    raise ValueError(f"flash_attention kernel: {msg}")
+
+
+@functools.lru_cache(maxsize=256)
+def flash_plan(q_shape, k_shape, v_shape, dtype, *, causal: bool = True,
+               window: Optional[int] = None,
+               chunk: Optional[int] = None) -> FlashPlan:
+    """The variant and tiling for q (B, S, H, hd), k (B, T, K, hd), v
+    (B, T, K, vd) of ``dtype`` under these masks: bf16 goes to the
+    tensor-core ("wgmma") variant, fp32 to the SIMT one.  Raises
+    ValueError for what neither variant takes; there is no fallback
+    from one to the other.  Cached by its arguments: a prefill asks
+    once per layer with the same ones."""
+    if not (len(q_shape) == 4 and len(k_shape) == 4 and len(v_shape) == 4):
+        _refuse("q, k, v must be 4-d (B, S|T, heads, dim)")
+    b, s, h, hd = q_shape
+    t, kk = k_shape[1], k_shape[2]
+    vd = v_shape[-1]
+    if tuple(k_shape) != (b, t, kk, hd):
+        _refuse(f"k {tuple(k_shape)} vs q {tuple(q_shape)}")
+    if tuple(v_shape[:3]) != (b, t, kk):
+        _refuse(f"v {tuple(v_shape)} vs k {tuple(k_shape)}")
+    if kk <= 0 or h % kk:
+        _refuse(f"{h} query heads not a multiple of {kk} kv heads")
+    g = h // kk
+    if g > MAX_ROWS:
+        _refuse(f"group {g} > {MAX_ROWS}")
+    if not (0 < hd <= MAX_HEAD_DIM and 0 < vd <= MAX_HEAD_DIM):
+        _refuse(f"head dims {hd}/{vd} outside (0, {MAX_HEAD_DIM}]")
+    variant = _VARIANTS.get(dtype)
+    if variant is None:
+        _refuse(f"dtype {dtype}: the kernels take bfloat16 or float32")
+    if t <= 0:
+        _refuse("no keys (T = 0)")
+    for name, val in (("window", window), ("chunk", chunk)):
+        if val is not None and val < 1:
+            _refuse(f"{name} must be >= 1, got {val}")
+    if rows_without_keys(s, t, causal=causal, window=window, chunk=chunk):
+        _refuse("some query rows see no key under these masks")
+    bq = block_q_for(g, s)
+    if variant == "simt":
+        return FlashPlan("simt", g, bq, 0, False)
+    if hd % 8 or vd % 8:
+        _refuse(f"head dims {hd}/{vd} must be multiples of 8 (TMA strides "
+                f"of 16 bytes)")
+    q_tiles = -(-s // bq)
+    if q_tiles > MAX_Q_TILES:
+        _refuse(f"{q_tiles} q tiles > {MAX_Q_TILES}")
+    width = next(w for w in WGMMA_WIDTHS if max(hd, vd) <= w)
+    return FlashPlan("wgmma", g, bq, width, causal)
+
+
+_launchers = {}
+
+
+def _launcher(variant: str):
+    """The C entry point of a variant's library, built at first use."""
+    fn = _launchers.get(variant)
+    if fn is None:
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [ci, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci,
-                       cf, cf, ci, ci, ci, vp]
+        if variant == "wgmma":
+            fn = build.load("flash_attention_sm90").flash_attention_sm90_launch
+            ints = 10       # batch .. g, hd, vd, width, block_q, longest_first
+        else:
+            fn = build.load("flash_attention").flash_attention_launch
+            ints = 8        # batch .. g, hd, vd, block_q
+        fn.argtypes = [vp] * 4 + [ci] * ints + [cf, cf, ci, ci, ci, vp]
         fn.restype = ci
-        _lib = fn
-    return _lib
+        _launchers[variant] = fn
+    return fn
 
 
-def _require(cond: bool, msg: str) -> None:
-    if not cond:
-        raise ValueError(f"flash_attention kernel: {msg}")
+def wgmma_block_k() -> int:
+    """Keys per K/V tile of the wgmma variant (asks the built library;
+    needs nvcc)."""
+    fn = build.load("flash_attention_sm90").flash_attention_sm90_block_k
+    fn.argtypes = []
+    fn.restype = ctypes.c_int
+    return fn()
+
+
+def wgmma_smem_bytes(width: int) -> int:
+    """Dynamic shared memory of a wgmma-variant launch at padded width
+    ``width`` (asks the built library; needs nvcc)."""
+    fn = build.load("flash_attention_sm90").flash_attention_sm90_smem
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return fn(width)
 
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True,
                          window: Optional[int] = None,
                          chunk: Optional[int] = None,
                          logit_cap: Optional[float] = None,
-                         scale: Optional[float] = None) -> torch.Tensor:
-    """Launch ``csrc/flash_attention.cu`` on q's current CUDA stream.
+                         scale: Optional[float] = None,
+                         counts: Optional[Dict[str, int]] = None
+                         ) -> torch.Tensor:
+    """Launch the variant :func:`flash_plan` picks on q's current CUDA
+    stream.  Where ``counts`` is given (the dispatcher's
+    ``ops.launches``), a launch adds one to ``flash_attention`` and one
+    to ``flash_attention_<variant>`` of the variant it launched.
 
     q (B, S, H, hd); k (B, T, K, hd); v (B, T, K, vd); contiguous, one
-    dtype (float32 or bfloat16), H % K == 0, hd and vd <= 256, group
-    H / K <= 64.  Returns (B, S, H, vd) in q.dtype.  Raises on anything
-    the kernel does not take — never computes on the CPU."""
-    if not torch.cuda.is_available():
-        raise RuntimeError("flash_attention kernel: CUDA is not available")
+    dtype (bfloat16: the wgmma variant, hd and vd multiples of 8, 16-byte
+    aligned; float32: the SIMT variant), H % K == 0, hd and vd <= 256,
+    group H / K <= 64.  Returns (B, S, H, vd) in q.dtype.  Raises on
+    anything the kernels do not take — never computes on the CPU."""
     dev = q.device
-    _require(dev.type == "cuda", f"q must be a CUDA tensor, got {dev}")
-    _require(q.dim() == 4 and k.dim() == 4 and v.dim() == 4,
-             "q, k, v must be 4-d (B, S|T, heads, dim)")
+    if dev.type != "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("flash_attention kernel: CUDA is not available")
+    if dev.type != "cuda" or k.device != dev or v.device != dev:
+        _refuse(f"q, k, v must be on one CUDA device, got {dev}, "
+                f"{k.device}, {v.device}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        _refuse(f"dtypes {q.dtype}/{k.dtype}/{v.dtype} differ")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        _refuse("operands must be contiguous")
+    p = flash_plan(q.shape, k.shape, v.shape, q.dtype, causal=causal,
+                   window=window, chunk=chunk)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr())
+    if p.variant == "wgmma" and (ptrs[0] | ptrs[1] | ptrs[2]) % 16:
+        _refuse("operands must be 16-byte aligned (TMA)")
     b, s, h, hd = q.shape
-    t, kk = k.shape[1], k.shape[2]
-    vd = v.shape[-1]
-    _require(tuple(k.shape) == (b, t, kk, hd),
-             f"k {tuple(k.shape)} vs q {tuple(q.shape)}")
-    _require(tuple(v.shape[:3]) == (b, t, kk),
-             f"v {tuple(v.shape)} vs k {tuple(k.shape)}")
-    _require(kk > 0 and h % kk == 0,
-             f"{h} query heads not a multiple of {kk} kv heads")
-    g = h // kk
-    _require(g <= MAX_ROWS, f"group {g} > {MAX_ROWS}")
-    _require(0 < hd <= MAX_HEAD_DIM and 0 < vd <= MAX_HEAD_DIM,
-             f"head dims {hd}/{vd} outside (0, {MAX_HEAD_DIM}]")
-    _require(q.dtype in _DTYPE_CODE and k.dtype == q.dtype
-             and v.dtype == q.dtype,
-             f"dtypes {q.dtype}/{k.dtype}/{v.dtype}: one of float32, "
-             f"bfloat16 for all three")
-    for x in (k, v):
-        _require(x.device == dev, f"operand on {x.device}, q on {dev}")
-    for x in (q, k, v):
-        _require(x.is_contiguous(), "operands must be contiguous")
-    _require(t > 0, "no keys (T = 0)")
-    for name, val in (("window", window), ("chunk", chunk)):
-        _require(val is None or val >= 1, f"{name} must be >= 1, got {val}")
-    _require(rows_without_keys(s, t, causal=causal, window=window,
-                               chunk=chunk) == 0,
-             "some query rows see no key under these masks")
+    t, kk, vd = k.shape[1], k.shape[2], v.shape[-1]
     out = torch.empty((b, s, h, vd), dtype=q.dtype, device=dev)
-    if b == 0 or s == 0:
+    if out.numel() == 0:
         return out
-    scale_ = scale if scale is not None else 1.0 / math.sqrt(hd)
-    rc = _launcher()(
-        _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), b, s, t, kk, g, hd, vd, block_q_for(g, s),
-        float(scale_), float(logit_cap) if logit_cap is not None else 0.0,
-        int(bool(causal)), int(window) if window is not None else 0,
-        int(chunk) if chunk is not None else 0,
+    tiling = ((p.width, p.block_q, int(p.longest_first))
+              if p.variant == "wgmma" else (p.block_q,))
+    rc = _launcher(p.variant)(
+        *ptrs, out.data_ptr(), b, s, t, kk, p.group, hd, vd, *tiling,
+        scale if scale is not None else 1.0 / math.sqrt(hd),
+        logit_cap or 0.0, int(causal), window or 0, chunk or 0,
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
-                           f"error {rc}")
+        raise RuntimeError(f"flash_attention kernel ({p.variant}) launch "
+                           f"failed: CUDA error {rc}"
+                           + (" (tensor-map encode)" if rc >= 1000 else ""))
+    if counts is not None:
+        counts["flash_attention"] += 1
+        counts["flash_attention_" + p.variant] += 1
     return out

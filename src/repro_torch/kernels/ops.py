@@ -7,7 +7,9 @@ cannot serve raises instead of computing elsewhere.
 
 ``launches`` counts, per kernel, the calls that launched it (the
 plain path does not count), so a run can show that its main path went
-through the kernels.  Counter reads and resets belong to the caller
+through the kernels; K3's wrapper also counts each launch under the
+variant it launched (``flash_attention_wgmma`` or
+``flash_attention_simt``).  Counter reads and resets belong to the caller
 (``reset_launches``).
 """
 from __future__ import annotations
@@ -22,7 +24,8 @@ from repro_torch.kernels.paged_attention import (paged_attention_cuda,
 from repro_torch.kernels.selective_scan import selective_scan_cuda
 
 launches: Dict[str, int] = {"paged_attention": 0, "mux_score": 0,
-                             "flash_attention": 0, "selective_scan": 0}
+                             "flash_attention": 0, "flash_attention_wgmma": 0,
+                             "flash_attention_simt": 0, "selective_scan": 0}
 
 
 def reset_launches() -> None:
@@ -37,18 +40,18 @@ def attention(q, k, v, *, causal: bool = True,
     """Whole-prompt attention.  q (B, S, H, hd); k/v (B, T, K, hd|vd);
     causal alignment top-left.  A CPU tensor gets the model's
     ``blocked_attention`` (what ``repro.kernels.ops.attention`` runs off
-    the TPU), a CUDA tensor the flash-attention kernel.  Returns
-    (B, S, H, vd) in q.dtype."""
+    the TPU), a CUDA tensor the flash-attention kernel's variant for
+    its dtype (bf16: wgmma, fp32: SIMT), which counts its launch in
+    ``launches``.  Returns (B, S, H, vd) in q.dtype."""
     if q.device.type == "cpu":
         from repro_torch.models.attention import blocked_attention
         return blocked_attention(q, k, v, causal=causal, window=window,
                                  chunk=chunk, scale=scale,
                                  logit_cap=logit_cap)
-    out = flash_attention_cuda(q.contiguous(), k.contiguous(),
-                               v.contiguous(), causal=causal, window=window,
-                               chunk=chunk, logit_cap=logit_cap, scale=scale)
-    launches["flash_attention"] += 1
-    return out
+    return flash_attention_cuda(q.contiguous(), k.contiguous(),
+                                v.contiguous(), causal=causal, window=window,
+                                chunk=chunk, logit_cap=logit_cap, scale=scale,
+                                counts=launches)
 
 
 def paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
