@@ -11,13 +11,17 @@ Phases, each of which must pass:
    nvcc per source, all at once) and print the build time and ptxas
    resource lines; for K3's tensor-core variant
    (``flash_attention_sm90.cu``) also its registers, dynamic shared
-   memory and spills at hd = vd = 128, where it must spill nothing.
+   memory and spills at hd = vd = 128, and for K1 those of its bf16
+   split kernel and its combine kernel; none may spill.
 2. Kernels against their plain PyTorch versions on the card: K1
    ``paged_attention`` over float32 / bf16 / int8 pages, GQA groups
    g in {1, 2, 4, 8}, full / window / chunk / logit-cap / v_dim
-   variants, mixed lengths with a length-0 row, and the combined
-   (B, M+1) operand against separate operands (bitwise), then at the
-   served shapes; K2 ``mux_score`` at the served shape and the
+   variants, mixed lengths with a length-0 row, long rows at page 64
+   (lengths 0-2048, windows of 50 and 1000 and a chunk of 300 whose
+   edges fall inside splits) and a shape served in one split; the
+   combined (B, M+1) operand against separate operands and a second
+   call against the first (both bitwise), then at the served shapes;
+   K2 ``mux_score`` at the served shape and the
    reference sweep shapes; K3 ``flash_attention`` on the JAX sweep's
    five shapes, GQA g in {1, 2, 4, 8} with S and T off the tiles, hd
    256, hd < vd, windows and chunks with fully masked rows in the
@@ -41,7 +45,9 @@ Phases, each of which must pass:
    x's dtype).  Each
    kernel is timed at the served shape (CUDA events; input copies
    rotated so the 50 MB L2 never holds the next call's operands)
-   beside its plain version and its bound; K3 at every served prefill
+   beside its plain version and its bound; K1 at both served decode
+   shapes and one 2048-token row, also as a CUDA graph and with the
+   wrapper's host microseconds a call; K3 at every served prefill
    shape, each beside ``scaled_dot_product_attention`` (timed only,
    never on the port's path; both also timed as CUDA graphs, an extra
    column), with the wrapper's host microseconds per call for each
@@ -97,7 +103,8 @@ Phases, each of which must pass:
 
 Output: progress lines, then the ``{"kernels": [...]}`` JSON line (the
 launches are phase 4's for K1-K3 and phase 6's falcon-mamba run for K4),
-a JSON line of K3's tensor-core variant's ptxas resources and its
+a JSON line of K1's ptxas resources and its times by shape, a JSON
+line of K3's tensor-core variant's ptxas resources and its
 times at each served shape beside SDPA and the bound, a JSON line of
 the direct path's per-request admission ms and decode tokens/s and,
 for phases 4 and 5, the launches, TTFT p50/p99 and decode tokens/s per
@@ -282,58 +289,116 @@ def paged_call(inp, kw):
     return args, kw
 
 
+def check_paged_resources() -> dict:
+    """K1's served instantiation (bf16 pages, one output a thread:
+    ``paged_attention_kernel<__nv_bfloat16, 1>``) and its combine pass:
+    ptxas's registers and spills from the build log; neither may
+    spill."""
+    from repro_torch.kernels import build
+    build.load("paged_attention")               # builds the source if needed
+    lines = build.build_log("paged_attention").splitlines()
+    found = {}
+    for key, tag in (("paged_attention_kernelI13__nv_bfloat16Li1EE",
+                      "split"),
+                     ("paged_attention_kernel_combine", "combine")):
+        entry = [i for i, ln in enumerate(lines)
+                 if "Compiling entry" in ln and key in ln]
+        check(len(entry) == 1, f"no single ptxas entry for K1's {tag} kernel "
+              f"({key}) in the build log")
+        body = []
+        for ln in lines[entry[0] + 1:]:
+            if "Compiling entry" in ln:
+                break
+            if "registers" in ln or "spill" in ln:
+                body.append(ln.replace("ptxas info    :", "").strip())
+        text = "; ".join(body)
+        log(f"  paged_attention {tag} kernel (bf16 pages): {text}")
+        check("0 bytes spill stores, 0 bytes spill loads" in text,
+              f"K1's {tag} kernel spills: {text}")
+        found[tag] = text
+    return found
+
+
+def paged_plan_of(inp) -> str:
+    """The split plan the wrapper takes for these inputs (for the log)."""
+    import torch
+    from repro_torch.kernels.paged_attention import (paged_plan, sm_count,
+                                                     smem_optin)
+    q, k, v, bt = inp["q"], inp["k"], inp["v"], inp["bt"]
+    p = paged_plan(q.shape[0], k.shape[2], q.shape[1] // k.shape[2],
+                   bt.shape[1], k.shape[1], q.shape[2], v.shape[-1],
+                   k.element_size(), k.dtype == torch.int8,
+                   sm_count(q.device.index), smem_optin(q.device.index))
+    return f"{p.num_splits}x{p.pages_per_split}p tile {p.tile}"
+
+
 def check_paged_attention(dev) -> float:
-    """K1 over page dtypes x GQA groups x variants; returns the max
+    """K1 over page dtypes x GQA groups x variants: short rows at page
+    16 (M=16), long rows at page 64 (M=32: lengths 0, 1, 63, 64, 65,
+    1000, 2048 with windows and a chunk whose edges fall inside splits)
+    and a shape the plan serves in one split.  Each case: within
+    tolerance of the plain version, separate == combined operands and
+    two calls bitwise equal, length-0 rows exact zeros.  Returns the max
     error over every case."""
     import torch
     from repro_torch.kernels.paged_attention import (decode_prefetch,
                                                      paged_attention_cuda,
                                                      paged_attention_plain)
     gen = torch.Generator().manual_seed(SEED)
-    h, hd, ps, m = 16, 128, 16, 16
-    lengths = [0, 1, 77, 200, 256]
-    variants = {"full": {}, "window": {"window": 50}, "chunk": {"chunk": 48},
-                "logit_cap": {"logit_cap": 30.0}, "v_dim": {"v_dim": 64}}
+    h, hd = 16, 128
+    short = {"full": {}, "window": {"window": 50}, "chunk": {"chunk": 48},
+             "logit_cap": {"logit_cap": 30.0}, "v_dim": {"v_dim": 64}}
+    long = {"long": {}, "long_window50": {"window": 50},
+            "long_window1000": {"window": 1000},
+            "long_chunk300": {"chunk": 300}}
+    cases = ([(16, 16, [0, 1, 77, 200, 256], v, kw) for v, kw in short.items()]
+             + [(64, 32, [0, 1, 63, 64, 65, 1000, 2048], v, kw)
+                for v, kw in long.items()])
     dtypes = {"float32": (torch.float32, torch.float32),
               "bf16": (torch.bfloat16, torch.bfloat16),
               "int8": (torch.int8, torch.bfloat16)}
+    one_split = list(np.random.default_rng(SEED).integers(0, 129, 64))
     worst = 0.0
     for dname, (page_dtype, q_dtype) in dtypes.items():
         tol = F32_PAGED_TOL if dname == "float32" else BF16_TOL
-        for g in (1, 2, 4, 8):
-            for vname, kw in variants.items():
-                inp = paged_inputs(gen, dev, lengths=lengths, h=h, kk=h // g,
-                                   hd=hd, ps=ps, m=m, page_dtype=page_dtype,
-                                   q_dtype=q_dtype,
-                                   share_kv=vname == "v_dim")
-                args, kwargs = paged_call(inp, kw)
-                sep = paged_attention_cuda(*args, **kwargs)
-                pf = decode_prefetch(inp["bt"], inp["lengths"])
-                comb = paged_attention_cuda(*args, prefetch=pf, **kwargs)
-                torch.cuda.synchronize()
-                plain = paged_attention_plain(*args, **kwargs)
-                err = (sep.float() - plain.float()).abs().max().item()
-                same = torch.equal(sep, comb)
-                zero = bool((sep[0] == 0).all())
-                log(f"K1 {dname:7s} g={g} {vname:9s} max_err={err:.3e} "
-                    f"tol={tol:g} combined==separate={same} "
-                    f"len0_zero={zero}")
-                check(err <= tol, f"K1 {dname} g={g} {vname}: max_err "
-                      f"{err:.3e} > {tol:g}")
-                check(same, f"K1 {dname} g={g} {vname}: the combined "
-                      f"operand gives another result than separate ones")
-                check(zero, f"K1 {dname} g={g} {vname}: a length-0 row is "
-                      f"not exact zeros")
-                worst = max(worst, err)
+        todo = [(g, *c) for g in (1, 2, 4, 8) for c in cases]
+        todo.append((1, 64, 2, [0] + one_split[1:], "one_split", {}))
+        for g, ps, m, lengths, vname, kw in todo:
+            inp = paged_inputs(gen, dev, lengths=lengths, h=h, kk=h // g,
+                               hd=hd, ps=ps, m=m, page_dtype=page_dtype,
+                               q_dtype=q_dtype, share_kv=vname == "v_dim")
+            args, kwargs = paged_call(inp, kw)
+            sep = paged_attention_cuda(*args, **kwargs)
+            again = paged_attention_cuda(*args, **kwargs)
+            pf = decode_prefetch(inp["bt"], inp["lengths"])
+            comb = paged_attention_cuda(*args, prefetch=pf, **kwargs)
+            torch.cuda.synchronize()
+            plain = paged_attention_plain(*args, **kwargs)
+            err = (sep.float() - plain.float()).abs().max().item()
+            same = torch.equal(sep, comb)
+            repeat = torch.equal(sep, again)
+            zero = bool((sep[0] == 0).all())
+            log(f"K1 {dname:7s} g={g} {vname:15s} splits "
+                f"{paged_plan_of(inp):18s} max_err={err:.3e} tol={tol:g} "
+                f"combined==separate={same} repeat={repeat} len0_zero={zero}")
+            check(err <= tol, f"K1 {dname} g={g} {vname}: max_err "
+                  f"{err:.3e} > {tol:g}")
+            check(same, f"K1 {dname} g={g} {vname}: the combined operand "
+                  f"gives another result than separate ones")
+            check(repeat, f"K1 {dname} g={g} {vname}: two calls differ")
+            check(zero, f"K1 {dname} g={g} {vname}: a length-0 row is not "
+                  f"exact zeros")
+            worst = max(worst, err)
     return worst
 
 
-def served_paged_shape(dev, *, h: int, copies: int = 1):
+def served_paged_shape(dev, *, h: int, copies: int = 1, lengths=None):
     """Decode batch 8, ``h`` heads of 128, page 64, mixed lengths up to
-    1024, bf16 pages (the olmo-1b / codeqwen1.5-7b decode step)."""
+    1024, bf16 pages (the olmo-1b / codeqwen1.5-7b decode step); other
+    ``lengths`` (e.g. one 2048-token row) on the same pool layout."""
     import torch
     gen = torch.Generator().manual_seed(SEED + h)
-    lengths = [1024, 911, 777, 600, 433, 256, 129, 17]
+    lengths = lengths or [1024, 911, 777, 600, 433, 256, 129, 17]
     return [paged_inputs(gen, dev, lengths=lengths, h=h, kk=h, hd=128, ps=64,
                          m=32, page_dtype=torch.bfloat16,
                          q_dtype=torch.bfloat16) for _ in range(copies)]
@@ -366,44 +431,63 @@ def paged_bound_ms(inp) -> tuple:
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+# K1's timed shapes: (name, heads, lengths or None for the served mix)
+PAGED_TIMED = (("B=8 H=16", 16, None), ("B=8 H=32", 32, None),
+               ("B=1 H=16 len=2048", 16, [2048]))
+
+
 def time_paged_attention(dev) -> dict:
-    """K1 at the served olmo-1b shape; codeqwen's shape checked too."""
+    """K1 at olmo-1b's and codeqwen1.5-7b's served decode shapes (B=8,
+    H=16 / 32, hd=128, page 64, bf16, lengths 17-1024; held against the
+    plain version first) and at B=1 with one 2048-token row: the eager
+    time (``time_cuda``, the method of every earlier row), the same
+    calls captured in a CUDA graph (``time_cuda_graph``: the device's
+    time, and proof that K1 captures), the bound, the plain version and
+    the wrapper's host microseconds a call.  Enough input copies rotate
+    that their pages exceed the 50 MB L2.  Returns olmo's numbers and a
+    row per shape."""
     import torch
     from repro_torch.kernels.paged_attention import (decode_prefetch,
                                                      paged_attention_cuda,
                                                      paged_attention_plain)
-    worst = 0.0
-    for h in (16, 32):
-        inp = served_paged_shape(dev, h=h)[0]
-        args, kw = paged_call(inp, {})
-        out = paged_attention_cuda(*args,
-                                   prefetch=decode_prefetch(inp["bt"],
-                                                            inp["lengths"]))
+    rows = []
+    for name, h, lengths in PAGED_TIMED:
+        one = served_paged_shape(dev, h=h, lengths=lengths)[0]
+        args, _ = paged_call(one, {})
+        out = paged_attention_cuda(*args, prefetch=decode_prefetch(
+            one["bt"], one["lengths"]))
         err = (out.float() - paged_attention_plain(*args).float()
                ).abs().max().item()
-        log(f"K1 served shape B=8 H={h} hd=128 page=64 max_err={err:.3e} "
-            f"tol={BF16_TOL:g}")
-        check(err <= BF16_TOL, f"K1 served shape H={h}: max_err {err:.3e}")
-        worst = max(worst, err)
-    # time at olmo's shape; rotate through copies whose pages together
-    # exceed the L2 so every call reads its K/V from device memory
-    one = served_paged_shape(dev, h=16)[0]
-    pool_bytes = 2 * one["k"].numel() * one["k"].element_size()
-    copies = served_paged_shape(dev, h=16,
-                                copies=max(2, -(-160_000_000 // pool_bytes)))
-    pfs = [decode_prefetch(c["bt"], c["lengths"]) for c in copies]
-    n = len(copies)
-    ms = time_cuda(lambda i: paged_attention_cuda(
-        copies[i % n]["q"], copies[i % n]["k"], copies[i % n]["v"],
-        copies[i % n]["bt"], copies[i % n]["lengths"], prefetch=pfs[i % n]),
-        iters=200)
-    plain_ms = time_cuda(lambda i: paged_attention_plain(
-        *paged_call(copies[i % n], {})[0]), iters=20)
-    bound, bound_by = paged_bound_ms(one)
-    log(f"K1 time at B=8 H=16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"bound {bound:.4f} ms ({bound_by}), {n} rotated copies")
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": bound_by, "served_err": worst}
+        check(err <= BF16_TOL, f"K1 at {name}: max_err {err:.3e}")
+        pool_bytes = 2 * one["k"].numel() * one["k"].element_size()
+        copies = [one] + served_paged_shape(
+            dev, h=h, lengths=lengths,
+            copies=max(1, -(-160_000_000 // pool_bytes) - 1))
+        pfs = [decode_prefetch(c["bt"], c["lengths"]) for c in copies]
+        n = len(copies)
+
+        def kernel(i):
+            c = copies[i % n]
+            return paged_attention_cuda(c["q"], c["k"], c["v"], c["bt"],
+                                        c["lengths"], prefetch=pfs[i % n])
+        row = {"shape": name, "copies": n, "max_abs_err": err,
+               "ms": time_cuda(kernel, iters=200),
+               "graph_ms": time_cuda_graph(kernel, iters=100),
+               "plain_ms": time_cuda(lambda i: paged_attention_plain(
+                   *paged_call(copies[i % n], {})[0]), iters=20),
+               "host_us": host_us(kernel)}
+        row["bound_ms"], row["bound_by"] = paged_bound_ms(one)
+        log(f"K1 time at {name} hd=128 page=64 bf16: kernel {row['ms']:.4f} "
+            f"ms, as a CUDA graph {row['graph_ms']:.4f} ms, bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}), plain "
+            f"{row['plain_ms']:.4f} ms, host {row['host_us']:.1f} us a call, "
+            f"max_err {err:.3e}, {n} rotated copies")
+        rows.append(row)
+    first = rows[0]
+    return {**{k: first[k] for k in ("ms", "graph_ms", "plain_ms",
+                                     "bound_ms", "bound_by")},
+            "served_err": max(r["max_abs_err"] for r in rows[:2]),
+            "shapes": rows}
 
 
 def check_mux_score(dev) -> dict:
@@ -1484,6 +1568,7 @@ def main(argv) -> int:
             if "registers" in line or "spill" in line:
                 log(f"  {name} ({secs:.1f} s): {line.strip()}")
     sm90 = check_sm90_resources()
+    k1_res = check_paged_resources()
 
     k1_err = check_paged_attention(dev)
     k1 = time_paged_attention(dev)
@@ -1603,6 +1688,8 @@ def main(argv) -> int:
     # run (K4); plain_ms is the plain PyTorch version's time, no yardstick
     # of speed
     print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"paged_attention_ptxas": k1_res,
+                      "paged_attention_by_shape": k1["shapes"]}), flush=True)
     print(json.dumps({"flash_attention_sm90": sm90,
                       "flash_attention_by_shape": k3["shapes"]}), flush=True)
     print(json.dumps({
@@ -1625,6 +1712,12 @@ def main(argv) -> int:
         "prefill_ms", "decode_tokens_per_s", "median_decode_step_ms",
         "prefills", "launches", "profile")} for arch, r in ring.items()}}),
         flush=True)
+    return finish()
+
+
+def finish() -> int:
+    """The card's name and power limit, then the closing line."""
+    import torch
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
