@@ -11,8 +11,10 @@ Phases, each of which must pass:
    nvcc per source, all at once) and print the build time and ptxas
    resource lines; for K3's tensor-core variant
    (``flash_attention_sm90.cu``) also its registers, dynamic shared
-   memory and spills at hd = vd = 128, and for K1 those of its bf16
-   split kernel and its combine kernel; none may spill.
+   memory and spills at hd = vd = 128, for K1 those of its bf16
+   split kernel and its combine kernel, and for K4 those of every
+   ``selective_scan_kernel`` instantiation (the served one: bf16 x,
+   n = 16); none may spill.
 2. Kernels against their plain PyTorch versions on the card: K1
    ``paged_attention`` over float32 / bf16 / int8 pages, GQA groups
    g in {1, 2, 4, 8}, full / window / chunk / logit-cap / v_dim
@@ -32,10 +34,12 @@ Phases, each of which must pass:
    (the tensor-core variant), and the served prefill shapes (B=1, S=T
    in {128, 448, 1024}, H=K in {16, 32}, hd 128, bf16); K4
    ``selective_scan`` on the JAX sweep's three shapes, S and d_in off
-   every tile, n in {4, 5, 8, 16, 64} (each with fp32 and bf16 x), a
-   random start state h0, h0 chaining (two halves, the second from the
-   first's h_final, equal one scan of the whole) and the served shape
-   (B=2, S=1024, d_in=8192, n=16, bf16 x).  TF32 is
+   every tile, n in {1, 4, 5, 8, 12, 16, 64}, d_in that defeat 16-byte
+   copies, S = 0, 1 and 3, 4096 steps (each with fp32 and bf16 x),
+   zero and random start states h0, h0 chaining (two halves, the
+   second from the first's h_final, equal one scan of the whole), two
+   calls bitwise equal, and the served shapes (B=2 and B=1, S=1024,
+   d_in=8192, n=16, bf16 x).  TF32 is
    switched off for the plain versions
    (``torch.backends.cuda.matmul.allow_tf32 = False``,
    ``torch.backends.cudnn.allow_tf32 = False``), so they run in full
@@ -51,7 +55,9 @@ Phases, each of which must pass:
    shape, each beside ``scaled_dot_product_attention`` (timed only,
    never on the port's path; both also timed as CUDA graphs, an extra
    column), with the wrapper's host microseconds per call for each
-   variant, and its SIMT variant on fp32 copies at the largest shape.
+   variant, and its SIMT variant on fp32 copies at the largest shape;
+   K4 at B=2 and B=1, eager and as CUDA graphs, with host microseconds
+   a call.
    A tiny fp32 model's prefill (through K3's SIMT variant) and
    teacher-forced decode (through K1) on the card are held against the
    same model on the CPU, and so are a tiny fp32 falcon-mamba's
@@ -104,6 +110,7 @@ Phases, each of which must pass:
 Output: progress lines, then the ``{"kernels": [...]}`` JSON line (the
 launches are phase 4's for K1-K3 and phase 6's falcon-mamba run for K4),
 a JSON line of K1's ptxas resources and its times by shape, a JSON
+line of K4's ptxas resources and its times by batch, a JSON
 line of K3's tensor-core variant's ptxas resources and its
 times at each served shape beside SDPA and the bound, a JSON line of
 the direct path's per-request admission ms and decode tokens/s and,
@@ -816,20 +823,30 @@ SCAN_CASES = {
     "sweep 1": (2, 128, 64, 16),
     "sweep 2": (1, 256, 128, 8),
     "sweep 3": (2, 64, 32, 4),
-    # S and d_in off every tile (32 steps, 128 / lanes channels)
+    # S and d_in off every tile (16-64 steps, 64 / lanes channels); d_in
+    # 129, 300 and 1001 defeat 16-byte copies of bf16 x rows, 129 and
+    # 1001 those of fp32 rows too
     "off-tile n=16": (1, 1000, 200, 16),
     "off-tile n=8": (2, 77, 300, 8),
     "off-tile n=5": (3, 33, 129, 5),
     "n=64": (1, 100, 72, 64),
+    "d_in=1001 n=12": (1, 300, 1001, 12),
+    "S=3 n=1": (2, 3, 40, 1),
+    "S=1": (2, 1, 8192, 16),
+    "S=0": (2, 0, 256, 16),
+    # a long sequence: 64 tiles through each block's ring
+    "4096 steps": (1, 4096, 256, 16),
 }
-SCAN_SERVED = (2, 1024, 8192, 16)   # falcon-mamba-7b prefill, phase 6
+SCAN_SERVED = (2, 1024, 8192, 16)      # falcon-mamba-7b prefill, phase 6
+SCAN_SERVED_B1 = (1, 1024, 8192, 16)   # one request (launch/serve --batch 1)
 
 
 def check_selective_scan(dev) -> float:
-    """K4 against its plain version: the cases above with fp32 and bf16
-    x, a random start state, h0 chaining (the two halves of a sequence,
+    """K4 against its plain version: the cases above and the served
+    shapes at B=2 and B=1, with fp32 and bf16 x (served: bf16), zero
+    and random start states, h0 chaining (the two halves of a sequence,
     the second from the first's h_final, equal one scan of the whole),
-    and the served shape (bf16 x, fp32 dt).  Returns the max error."""
+    and two calls bitwise equal.  Returns the max error."""
     import torch
     from repro_torch.kernels.ref import selective_scan_ref
     from repro_torch.kernels.selective_scan import selective_scan_cuda
@@ -839,39 +856,84 @@ def check_selective_scan(dev) -> float:
     def held(name, got, want):
         nonlocal worst
         for part, g, w in zip(("y", "h_final"), got, want):
+            check(g.shape == w.shape and bool(torch.isfinite(g).all()),
+                  f"K4 {name} {part}: shape {tuple(g.shape)} vs "
+                  f"{tuple(w.shape)}, or not finite")
             err, ok = scan_err(g, w)
-            log(f"K4 {name:28s} {part:7s} max_err={err:.3e} "
+            log(f"K4 {name:36s} {part:7s} max_err={err:.3e} "
                 f"tol={SCAN_ATOL:g}+{SCAN_RTOL:g}|want|")
             check(ok, f"K4 {name} {part}: max_err {err:.3e} off tolerance")
             worst = max(worst, err)
 
+    def twice(name, *args):
+        got = selective_scan_cuda(*args)
+        again = selective_scan_cuda(*args)
+        torch.cuda.synchronize()
+        check(all(torch.equal(g, a) for g, a in zip(got, again)),
+              f"K4 {name}: two calls differ")
+        return got
+
     cases = [(f"{n_} {d_}", c, dt) for n_, c in SCAN_CASES.items()
              for d_, dt in (("float32", torch.float32),
                             ("bf16", torch.bfloat16))]
-    cases.append(("served bf16", SCAN_SERVED, torch.bfloat16))
+    cases += [("served bf16", SCAN_SERVED, torch.bfloat16),
+              ("served B=1 bf16", SCAN_SERVED_B1, torch.bfloat16)]
     for name, (b, s, d, n), x_dtype in cases:
         inp = scan_inputs(gen, dev, b, s, d, n, x_dtype, h0=True)
-        got = selective_scan_cuda(*inp[:6])
+        held(name, twice(name, *inp[:6]), selective_scan_ref(*inp[:6]))
+        # a random start state
+        held(name + " h0", twice(name + " h0", *inp),
+             selective_scan_ref(*inp))
+        if s < 64:
+            continue
+        x, dt, bm, cm, a, dv, _ = inp
+        cut = s // 2 + 3
+        y1, h1 = selective_scan_cuda(x[:, :cut].contiguous(),
+                                     dt[:, :cut].contiguous(),
+                                     bm[:, :cut].contiguous(),
+                                     cm[:, :cut].contiguous(), a, dv)
+        y2, h2 = selective_scan_cuda(x[:, cut:].contiguous(),
+                                     dt[:, cut:].contiguous(),
+                                     bm[:, cut:].contiguous(),
+                                     cm[:, cut:].contiguous(), a, dv, h1)
         torch.cuda.synchronize()
-        held(name, got, selective_scan_ref(*inp[:6]))
-        if s >= 64:                 # a random start state, and chaining
-            got = selective_scan_cuda(*inp)
-            torch.cuda.synchronize()
-            held(name + " h0", got, selective_scan_ref(*inp))
-            x, dt, bm, cm, a, dv, _ = inp
-            cut = s // 2 + 3
-            y1, h1 = selective_scan_cuda(x[:, :cut].contiguous(),
-                                         dt[:, :cut].contiguous(),
-                                         bm[:, :cut].contiguous(),
-                                         cm[:, :cut].contiguous(), a, dv)
-            y2, h2 = selective_scan_cuda(x[:, cut:].contiguous(),
-                                         dt[:, cut:].contiguous(),
-                                         bm[:, cut:].contiguous(),
-                                         cm[:, cut:].contiguous(), a, dv, h1)
-            torch.cuda.synchronize()
-            held(name + " chained", (torch.cat([y1, y2], 1), h2),
-                 selective_scan_ref(*inp[:6]))
+        held(name + " chained", (torch.cat([y1, y2], 1), h2),
+             selective_scan_ref(*inp[:6]))
     return worst
+
+
+def check_scan_resources() -> dict:
+    """K4's ptxas resources from the build log: every instantiation of
+    ``selective_scan_kernel`` (x dtype x lanes a channel) is logged, the
+    served one (bf16 x, n = 16 on 2 lanes:
+    ``selective_scan_kernel<__nv_bfloat16, 2>``) must be there, and none
+    may spill."""
+    from repro_torch.kernels import build
+    build.load("selective_scan")                # builds the source if needed
+    lines = build.build_log("selective_scan").splitlines()
+    found = {}
+    for i, ln in enumerate(lines):
+        if "Compiling entry" not in ln or "selective_scan_kernel" not in ln:
+            continue
+        key = ln.split("'")[1] if "'" in ln else ln.strip()
+        body = []
+        for nxt in lines[i + 1:]:
+            if "Compiling entry" in nxt:
+                break
+            if "registers" in nxt or "spill" in nxt:
+                body.append(nxt.replace("ptxas info    :", "").strip())
+        found[key] = "; ".join(body)
+        log(f"  selective_scan {key}: {found[key]}")
+    served = [k for k in found
+              if "selective_scan_kernelI13__nv_bfloat16Li2EE" in k]
+    check(len(served) == 1, f"no single ptxas entry for K4's served "
+          f"instantiation in the build log: {sorted(found)}")
+    spills = {k: v for k, v in found.items()
+              if "0 bytes spill stores, 0 bytes spill loads" not in v}
+    check(not spills, f"K4 spills: {spills}")
+    log(f"  selective_scan served kernel (bf16 x, 2 lanes): "
+        f"{found[served[0]]} ({len(found)} instantiations, none spills)")
+    return {"served": found[served[0]], "instantiations": len(found)}
 
 
 def sm_clock_hz() -> float:
@@ -907,25 +969,47 @@ def scan_bound_ms(inp, h0: bool = False) -> tuple:
 def time_selective_scan(dev) -> dict:
     """K4 at the served prefill shape of falcon-mamba-7b (B=2, S=1024,
     d_in=8192, n=16, bf16 x, fp32 dt/B/C, a start state h0, as
-    ``mamba_forward`` passes ``cache["h"]``) beside its plain version and
-    its bound.  No single PyTorch call computes a selective
-    scan, so there is no library time.  Two input copies (~100 MB each)
-    rotate so the L2 does not hold the next call's operands."""
+    ``mamba_forward`` passes ``cache["h"]``) and at B=1 (one request):
+    the eager time (``time_cuda``, CUDA events, the method of every
+    earlier row), the same calls captured in a CUDA graph
+    (``time_cuda_graph``: the device's time, and proof that K4
+    captures), the bound, the plain version and the wrapper's host
+    microseconds a call.  No single PyTorch call computes a selective
+    scan, so there is no library time.  Input copies (~100 / ~50 MB
+    each) rotate so the L2 does not hold the next call's operands.
+    Calls only ``selective_scan_cuda(x, dt, B, C, A, D, h0)``, so it
+    also times a parent's K4 in the same call.  Returns B=2's numbers
+    and a row per shape."""
     import torch
     from repro_torch.kernels.ref import selective_scan_ref
     from repro_torch.kernels.selective_scan import selective_scan_cuda
     gen = torch.Generator().manual_seed(SEED + 9)
-    copies = [scan_inputs(gen, dev, *SCAN_SERVED, torch.bfloat16, h0=True)
-              for _ in range(2)]
-    n = len(copies)
-    ms = time_cuda(lambda i: selective_scan_cuda(*copies[i % n]), iters=50)
-    plain_ms = time_cuda(lambda i: selective_scan_ref(*copies[i % n]),
-                         iters=3, warmup=1)
-    bound, bound_by = scan_bound_ms(copies[0], h0=True)
-    log(f"K4 time at B=2 S=1024 d_in=8192 n=16 (bf16 x, h0): kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({bound_by})")
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": bound_by}
+    rows = []
+    for name, shape, n_copies in (("B=2", SCAN_SERVED, 2),
+                                  ("B=1", SCAN_SERVED_B1, 3)):
+        copies = [scan_inputs(gen, dev, *shape, torch.bfloat16, h0=True)
+                  for _ in range(n_copies)]
+
+        def kernel(i):
+            return selective_scan_cuda(*copies[i % n_copies])
+        row = {"shape": name, "copies": n_copies,
+               "ms": time_cuda(kernel, iters=50),
+               "graph_ms": time_cuda_graph(kernel, iters=20),
+               "plain_ms": time_cuda(
+                   lambda i: selective_scan_ref(*copies[i % n_copies]),
+                   iters=3, warmup=1),
+               "host_us": host_us(kernel)}
+        row["bound_ms"], row["bound_by"] = scan_bound_ms(copies[0], h0=True)
+        log(f"K4 time at {name} S=1024 d_in=8192 n=16 (bf16 x, h0): kernel "
+            f"{row['ms']:.4f} ms, as a CUDA graph {row['graph_ms']:.4f} ms, "
+            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), plain "
+            f"{row['plain_ms']:.4f} ms, host {row['host_us']:.1f} us a call")
+        rows.append(row)
+        del copies
+    first = rows[0]
+    return {**{k: first[k] for k in ("ms", "graph_ms", "plain_ms",
+                                     "bound_ms", "bound_by")},
+            "shapes": rows}
 
 
 def check_mamba_against_cpu(dev) -> float:
@@ -1569,6 +1653,7 @@ def main(argv) -> int:
                 log(f"  {name} ({secs:.1f} s): {line.strip()}")
     sm90 = check_sm90_resources()
     k1_res = check_paged_resources()
+    k4_res = check_scan_resources()
 
     k1_err = check_paged_attention(dev)
     k1 = time_paged_attention(dev)
@@ -1690,6 +1775,9 @@ def main(argv) -> int:
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"paged_attention_ptxas": k1_res,
                       "paged_attention_by_shape": k1["shapes"]}), flush=True)
+    print(json.dumps({"selective_scan_ptxas": k4_res,
+                      "selective_scan_by_shape": k4["shapes"]}),
+          flush=True)
     print(json.dumps({"flash_attention_sm90": sm90,
                       "flash_attention_by_shape": k3["shapes"]}), flush=True)
     print(json.dumps({

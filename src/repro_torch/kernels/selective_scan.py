@@ -17,7 +17,12 @@ import torch
 from repro_torch.kernels import build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-MAX_STATE = 64               # csrc kMaxState: 16 lanes x 4 states
+MAX_STATE = 64               # csrc kMaxState: 8 lanes x 8 states
+
+# selective_scan_launch(x_dtype, x, dt, B, C, A, D, h0, y, h_final,
+# batch, seqlen, d_in, n, stream)
+ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
+            + [ctypes.c_void_p])
 
 _lib = None
 
@@ -26,16 +31,14 @@ def _launcher():
     global _lib
     if _lib is None:
         fn = build.load("selective_scan").selective_scan_launch
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [ci] + [vp] * 9 + [ci, ci, ci, ci, vp]
-        fn.restype = ci
+        fn.argtypes = ARGTYPES
+        fn.restype = ctypes.c_int
         _lib = fn
     return _lib
 
 
-def _require(cond: bool, msg: str) -> None:
-    if not cond:
-        raise ValueError(f"selective_scan kernel: {msg}")
+def _refuse(msg: str):
+    raise ValueError(f"selective_scan kernel: {msg}")
 
 
 def selective_scan_cuda(x, dt, b_mat, c_mat, a_mat, d_vec, h0=None):
@@ -46,36 +49,44 @@ def selective_scan_cuda(x, dt, b_mat, c_mat, a_mat, d_vec, h0=None):
     (zeros).  x is float32 or bfloat16 and contiguous; the kernel reads
     dt, B, C, A, D and h0 as contiguous fp32 (cast here, a no-op for the
     Mamba block's fp32 dt, B and C).
-    Returns (y (B, S, d_in) fp32, h_final (B, d_in, n) fp32).  Raises on
-    anything the kernel does not take — never computes on the CPU."""
-    if not torch.cuda.is_available():
-        raise RuntimeError("selective_scan kernel: CUDA is not available")
+    Returns (y (B, S, d_in) fp32, h_final (B, d_in, n) fp32).  Reads
+    nothing back from the card (the call can be captured in a CUDA
+    graph).  Raises on anything the kernel does not take — never
+    computes on the CPU."""
     dev = x.device
-    _require(dev.type == "cuda", f"x must be a CUDA tensor, got {dev}")
-    _require(x.dim() == 3, f"x must be (B, S, d_in), got {tuple(x.shape)}")
+    if dev.type != "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("selective_scan kernel: CUDA is not available")
+    if dev.type != "cuda":
+        _refuse(f"x must be a CUDA tensor, got {dev}")
+    # the messages are built only on a refusal: this runs once a layer of
+    # every prefill
+    if x.dim() != 3:
+        _refuse(f"x must be (B, S, d_in), got {tuple(x.shape)}")
     b, s, d_in = x.shape
-    _require(b_mat.dim() == 3, f"b_mat must be (B, S, n), got "
-             f"{tuple(b_mat.shape)}")
+    if b_mat.dim() != 3:
+        _refuse(f"b_mat must be (B, S, n), got {tuple(b_mat.shape)}")
     n = b_mat.shape[-1]
-    _require(tuple(dt.shape) == (b, s, d_in),
-             f"dt {tuple(dt.shape)} vs x {tuple(x.shape)}")
-    _require(tuple(b_mat.shape) == (b, s, n)
-             and tuple(c_mat.shape) == (b, s, n),
-             f"b_mat {tuple(b_mat.shape)} / c_mat {tuple(c_mat.shape)} vs "
-             f"x {tuple(x.shape)}")
-    _require(tuple(a_mat.shape) == (d_in, n) and tuple(d_vec.shape) == (d_in,),
-             f"a_mat {tuple(a_mat.shape)} / d_vec {tuple(d_vec.shape)}")
-    _require(h0 is None or tuple(h0.shape) == (b, d_in, n),
-             f"h0 {None if h0 is None else tuple(h0.shape)} vs "
-             f"{(b, d_in, n)}")
-    _require(1 <= n <= MAX_STATE, f"state size {n} outside [1, {MAX_STATE}]")
-    _require(b <= 65535, f"batch {b} > 65535")
-    _require(x.dtype in _DTYPE_CODE,
-             f"x dtype {x.dtype}: float32 or bfloat16")
-    _require(x.is_contiguous(), "x must be contiguous")
+    if dt.shape != x.shape:
+        _refuse(f"dt {tuple(dt.shape)} vs x {tuple(x.shape)}")
+    if b_mat.shape != (b, s, n) or c_mat.shape != (b, s, n):
+        _refuse(f"b_mat {tuple(b_mat.shape)} / c_mat {tuple(c_mat.shape)} "
+                f"vs x {tuple(x.shape)}")
+    if a_mat.shape != (d_in, n) or d_vec.shape != (d_in,):
+        _refuse(f"a_mat {tuple(a_mat.shape)} / d_vec {tuple(d_vec.shape)}")
+    if h0 is not None and h0.shape != (b, d_in, n):
+        _refuse(f"h0 {tuple(h0.shape)} vs {(b, d_in, n)}")
+    if not 1 <= n <= MAX_STATE:
+        _refuse(f"state size {n} outside [1, {MAX_STATE}]")
+    if b > 65535:
+        _refuse(f"batch {b} > 65535")
+    if x.dtype not in _DTYPE_CODE:
+        _refuse(f"x dtype {x.dtype}: float32 or bfloat16")
+    if not x.is_contiguous():
+        _refuse("x must be contiguous")
     rest = [dt, b_mat, c_mat, a_mat, d_vec] + ([] if h0 is None else [h0])
     for t in rest:
-        _require(t.device == dev, f"operand on {t.device}, x on {dev}")
+        if t.device != dev:
+            _refuse(f"operand on {t.device}, x on {dev}")
     dt32, b32, c32, a32, d32 = (t.to(torch.float32).contiguous()
                                 for t in (dt, b_mat, c_mat, a_mat, d_vec))
     h32 = None if h0 is None else h0.to(torch.float32).contiguous()
