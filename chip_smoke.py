@@ -12,9 +12,10 @@ Phases, each of which must pass:
    resource lines; for K3's tensor-core variant
    (``flash_attention_sm90.cu``) also its registers, dynamic shared
    memory and spills at hd = vd = 128, for K1 those of its bf16
-   split kernel and its combine kernel, and for K4 those of every
+   split kernel and its combine kernel, for K4 those of every
    ``selective_scan_kernel`` instantiation (the served one: bf16 x,
-   n = 16); none may spill.
+   n = 16), and for K2 those of both forms of ``mux_score_kernel``;
+   none may spill.
 2. Kernels against their plain PyTorch versions on the card: K1
    ``paged_attention`` over float32 / bf16 / int8 pages, GQA groups
    g in {1, 2, 4, 8}, full / window / chunk / logit-cap / v_dim
@@ -23,8 +24,19 @@ Phases, each of which must pass:
    edges fall inside splits) and a shape served in one split; the
    combined (B, M+1) operand against separate operands and a second
    call against the first (both bitwise), then at the served shapes;
-   K2 ``mux_score`` at the served shape and the
-   reference sweep shapes; K3 ``flash_attention`` on the JAX sweep's
+   K2 ``mux_score`` in its head form (the probe's mean pool, out
+   projection and tanh fused before Eq. 5-6, against ``mux_head_ref``)
+   at the served probe shape (B=1, S=64, d=128, M=32, N=2), the sweep
+   (B, S, d, M, N) = (3, 1, 32, 8, 2), (5, 17, 96, 24, 6), (2, 64, 128,
+   32, 16), d = 30 (4-byte loads), M = 72 and N = 40 (lanes loop), d =
+   4096 (132 KB of shared memory) and h off 16-byte alignment, and in
+   its meta form (the TPU kernel's contract) at the reference sweep
+   shapes, each twice, bitwise; then the probe's and select's CUDA
+   graphs against the eager functions they capture at (B, S) = (1, 64),
+   (1, 17), (3, 64) (weights and assignments bitwise equal, or weights
+   within 1e-6 with the reason logged; K2's launches as its wrapper
+   counted them: a capture tallies one, which each replay adds);
+   K3 ``flash_attention`` on the JAX sweep's
    five shapes, GQA g in {1, 2, 4, 8} with S and T off the tiles, hd
    256, hd < vd, windows and chunks with fully masked rows in the
    first live tile, a block with an odd key-tile count (the 2-stage K/V
@@ -57,7 +69,9 @@ Phases, each of which must pass:
    column), with the wrapper's host microseconds per call for each
    variant, and its SIMT variant on fp32 copies at the largest shape;
    K4 at B=2 and B=1, eager and as CUDA graphs, with host microseconds
-   a call.
+   a call; K2's head form at the served probe shape eager, as a CUDA
+   graph and in host microseconds a call, beside the same composed
+   plain ops eager and as a graph, and its meta form.
    A tiny fp32 model's prefill (through K3's SIMT variant) and
    teacher-forced decode (through K1) on the card are held against the
    same model on the CPU, and so are a tiny fp32 falcon-mamba's
@@ -75,8 +89,14 @@ Phases, each of which must pass:
    drains to zero pages, ``paged_attention`` launched num_layers x
    decode steps times on each engine, ``flash_attention`` num_layers x
    whole-prompt prefills, every one of them on the tensor-core variant
-   (the per-variant counts; likewise in phases 4-6), ``mux_score`` at
-   least once.
+   (the per-variant counts; likewise in phases 4-6), ``mux_score``
+   once per probe.  The server's probe and select graphs are captured
+   once at B=1, S=64 before the run, so every probe of phases 3-5 is a
+   replay of each.  Before the run, the server's probe also captures
+   three new shapes (S = 23, 40, 57) while another thread runs
+   whole-prompt prefills on olmo-1b: the graphed probes against the
+   eager ones, and every racing prefill against the same prefill run
+   alone.
 4. The scheduler path on the same zoo, the serving entry point users
    call: ``PagedLLMScheduler`` over one ``InProcessBackend`` per
    engine, ``select_fn`` = the mux probe, whole-prompt prefill.  16
@@ -106,6 +126,11 @@ Phases, each of which must pass:
    shape (2, 1056) and (2, 264); every logit finite; per prefill call,
    ``selective_scan`` launched 64 times (falcon-mamba) or
    ``flash_attention`` 16 times (olmo-1b) and no other kernel.
+7. Last, since a ``torch.profiler`` window slows the host's later
+   launches: the whole probe (weights + select) at B=1, S=64, eager
+   against graphed: ms a call, host microseconds a call, and device
+   busy ms and launches a probe from ``torch.profiler``, whose rows
+   must show ``mux_score_kernel`` once a probe on either path.
 
 Output: progress lines, then the ``{"kernels": [...]}`` JSON line (the
 launches are phase 4's for K1-K3 and phase 6's falcon-mamba run for K4),
@@ -117,7 +142,9 @@ the direct path's per-request admission ms and decode tokens/s and,
 for phases 4 and 5, the launches, TTFT p50/p99 and decode tokens/s per
 model, a JSON line of phase 6's prefill ms, decode tokens/s, median
 decode step ms and launches per model (with ``--profile`` also device
-busy ms of the prefill, K4's share of it, and of one decode step), the
+busy ms of the prefill, K4's share of it, and of one decode step), a
+``{"probe": ...}`` line (K2's ptxas resources and times, the graphs
+against the eager probe, the probe eager against graphed), the
 card's name and power limit (nvidia-smi), and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the run
 exits non-zero without that last line.  It needs one CUDA card and a
@@ -226,26 +253,39 @@ def host_us(fn, calls: int = 200) -> float:
     return host
 
 
+def ptxas_entries(lib: str, key: str) -> dict:
+    """{mangled entry: "registers ...; spills ..."} for every entry of
+    ``csrc/<lib>.cu``'s build log whose name contains ``key``."""
+    from repro_torch.kernels import build
+    build.load(lib)                             # builds the source if needed
+    lines = build.build_log(lib).splitlines()
+    found = {}
+    for i, ln in enumerate(lines):
+        if "Compiling entry" not in ln or key not in ln:
+            continue
+        name = ln.split("'")[1] if "'" in ln else ln.strip()
+        body = []
+        for nxt in lines[i + 1:]:
+            if "Compiling entry" in nxt:
+                break
+            if "registers" in nxt or "spill" in nxt:
+                body.append(nxt.replace("ptxas info    :", "").strip())
+        found[name] = "; ".join(body)
+    return found
+
+
 def check_sm90_resources() -> dict:
     """K3's tensor-core variant at the served width (hd = vd = 128, the
     ``<128>`` instantiation): ptxas's registers and spills from the build
     log and the dynamic shared memory its launch asks for; it must spill
     nothing."""
-    from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import wgmma_smem_bytes
     smem = wgmma_smem_bytes(128)                # builds the source if needed
-    lines = build.build_log("flash_attention_sm90").splitlines()
-    entry = [i for i, ln in enumerate(lines) if "Compiling entry" in ln
-             and "flash_attention_sm90_kernelILi128E" in ln]
+    entry = ptxas_entries("flash_attention_sm90",
+                          "flash_attention_sm90_kernelILi128E")
     check(len(entry) == 1, "no ptxas entry for the <128> instantiation of "
           "flash_attention_sm90_kernel in the build log")
-    body = []
-    for ln in lines[entry[0] + 1:]:
-        if "Compiling entry" in ln:
-            break
-        if "registers" in ln or "spill" in ln:
-            body.append(ln.replace("ptxas info    :", "").strip())
-    text = "; ".join(body)
+    text = next(iter(entry.values()))
     log(f"  flash_attention_sm90 <128>: {text}; dynamic shared memory "
         f"{smem} bytes a block")
     check("0 bytes spill stores, 0 bytes spill loads" in text,
@@ -301,24 +341,14 @@ def check_paged_resources() -> dict:
     ``paged_attention_kernel<__nv_bfloat16, 1>``) and its combine pass:
     ptxas's registers and spills from the build log; neither may
     spill."""
-    from repro_torch.kernels import build
-    build.load("paged_attention")               # builds the source if needed
-    lines = build.build_log("paged_attention").splitlines()
     found = {}
     for key, tag in (("paged_attention_kernelI13__nv_bfloat16Li1EE",
                       "split"),
                      ("paged_attention_kernel_combine", "combine")):
-        entry = [i for i, ln in enumerate(lines)
-                 if "Compiling entry" in ln and key in ln]
+        entry = ptxas_entries("paged_attention", key)
         check(len(entry) == 1, f"no single ptxas entry for K1's {tag} kernel "
               f"({key}) in the build log")
-        body = []
-        for ln in lines[entry[0] + 1:]:
-            if "Compiling entry" in ln:
-                break
-            if "registers" in ln or "spill" in ln:
-                body.append(ln.replace("ptxas info    :", "").strip())
-        text = "; ".join(body)
+        text = next(iter(entry.values()))
         log(f"  paged_attention {tag} kernel (bf16 pages): {text}")
         check("0 bytes spill stores, 0 bytes spill loads" in text,
               f"K1's {tag} kernel spills: {text}")
@@ -497,41 +527,352 @@ def time_paged_attention(dev) -> dict:
             "shapes": rows}
 
 
-def check_mux_score(dev) -> dict:
-    """K2 at the sweep shapes and the served shape (B=1, M=32, N=2,
-    normalize=False); timed at the served shape."""
+# K2's head form: (B, S, d, M, N, normalize); the first is the served probe
+MUX_HEAD_CASES = ((1, 64, 128, 32, 2, False), (3, 1, 32, 8, 2, True),
+                  (5, 17, 96, 24, 6, True), (2, 64, 128, 32, 16, False),
+                  (2, 5, 30, 8, 3, True),       # d % 4 != 0: 4-byte loads
+                  (2, 9, 64, 72, 40, True),     # M, N > 32: lanes loop
+                  (1, 8, 4096, 32, 2, False))   # 132 KB of shared memory
+MUX_META_CASES = ((10, 64, 6, True), (300, 32, 2, True), (7, 128, 16, True),
+                  (1, 32, 2, False))
+MUX_SERVED = MUX_HEAD_CASES[0]
+# the probe's graphs against its eager functions, in this order, so a
+# second shape follows a first: (B, S)
+PROBE_SHAPES = ((1, 64), (1, 17), (3, 64))
+# prompt lengths the zoo's probe first sees while a prefill runs on
+# another thread (``check_capture_race``)
+RACE_LENS = (23, 40, 57)
+
+
+def check_mux_resources() -> dict:
+    """K2's two forms (``mux_score_kernel<true>``, the head form on the
+    probe's path, and ``<false>``, the meta form): ptxas's registers and
+    spills from the build log; neither may spill."""
+    found = ptxas_entries("mux_score", "mux_score_kernel")
+    out = {}
+    for form, tag in (("head", "ILb1E"), ("meta", "ILb0E")):
+        hits = [k for k in found if tag in k]
+        check(len(hits) == 1, f"no single ptxas entry for K2's {form} form "
+              f"in the build log: {sorted(found)}")
+        text = found[hits[0]]
+        log(f"  mux_score {form} form: {text}")
+        check("0 bytes spill stores, 0 bytes spill loads" in text,
+              f"K2's {form} form spills: {text}")
+        out[form] = text
+    return out
+
+
+def mux_inputs(gen, dev, b, s, d, m, n, *, misalign=False):
+    """Random h (B, S, d), w_out (d, M) / sqrt(d), v (N, M) and cost^alpha
+    (N,) drawn on the CPU from ``gen``; ``misalign`` puts h 4 bytes past a
+    16-byte boundary (the kernel's 4-byte path)."""
     import torch
-    from repro_torch.kernels.mux_score import mux_score_cuda
-    from repro_torch.kernels.ref import mux_score_ref
-    gen = torch.Generator().manual_seed(SEED)
+    flat = torch.randn((b * s * d + 1,), generator=gen).to(dev)
+    h = (flat[1:] if misalign else flat[:-1]).view(b, s, d)
+    w_out = (torch.randn((d, m), generator=gen) / d ** 0.5).to(dev)
+    v = torch.randn((n, m), generator=gen).to(dev)
+    cost = (torch.arange(1.0, n + 1) ** 0.5).to(dev)
+    return h, w_out, v, cost
+
+
+def check_mux_score(dev) -> float:
+    """K2 against its plain versions: the head form (``mux_head_cuda``
+    against ``mux_head_ref``) at ``MUX_HEAD_CASES`` and once with h off
+    16-byte alignment, the meta form (``mux_score_cuda`` against
+    ``mux_score_ref``) at ``MUX_META_CASES``, each within
+    ``F32_MUX_TOL``, and a second call of each form bitwise equal to the
+    first.  Returns the largest error."""
+    import torch
+    from repro_torch.kernels.mux_score import mux_head_cuda, mux_score_cuda
+    from repro_torch.kernels.ref import mux_head_ref, mux_score_ref
+    gen = torch.Generator().manual_seed(SEED + 20)
     worst = 0.0
-    cases = [(10, 64, 6, True), (300, 32, 2, True), (7, 128, 16, True),
-             (1, 32, 2, False)]
-    for b, m, n, norm in cases:
+    cases = [(c, False) for c in MUX_HEAD_CASES] + [(MUX_SERVED, True)]
+    for (b, s, d, m, n, norm), misalign in cases:
+        h, w_out, v, cost = mux_inputs(gen, dev, b, s, d, m, n,
+                                       misalign=misalign)
+        got = mux_head_cuda(h, w_out, v, cost, normalize=norm)
+        again = mux_head_cuda(h, w_out, v, cost, normalize=norm)
+        torch.cuda.synchronize()
+        err = (got - mux_head_ref(h, w_out, v, cost, normalize=norm)
+               ).abs().max().item()
+        tag = (f"K2 head B={b} S={s} d={d} M={m} N={n} normalize={norm}"
+               f"{' h misaligned' if misalign else ''}")
+        log(f"{tag} max_err={err:.3e} tol={F32_MUX_TOL:g}")
+        check(err <= F32_MUX_TOL, f"{tag}: max_err {err:.3e}")
+        check(torch.equal(got, again), f"{tag}: two calls differ")
+        worst = max(worst, err)
+    for b, m, n, norm in MUX_META_CASES:
         meta = torch.randn((b, m), generator=gen).to(dev)
         v = torch.randn((n, m), generator=gen).to(dev)
         cost = torch.arange(1.0, n + 1).to(dev)
         got = mux_score_cuda(meta, v, cost, normalize=norm)
+        again = mux_score_cuda(meta, v, cost, normalize=norm)
         torch.cuda.synchronize()
         err = (got - mux_score_ref(meta, v, cost, normalize=norm)
                ).abs().max().item()
-        log(f"K2 B={b} M={m} N={n} normalize={norm} max_err={err:.3e} "
-            f"tol={F32_MUX_TOL:g}")
-        check(err <= F32_MUX_TOL, f"K2 {(b, m, n, norm)}: max_err {err:.3e}")
+        tag = f"K2 meta B={b} M={m} N={n} normalize={norm}"
+        log(f"{tag} max_err={err:.3e} tol={F32_MUX_TOL:g}")
+        check(err <= F32_MUX_TOL, f"{tag}: max_err {err:.3e}")
+        check(torch.equal(got, again), f"{tag}: two calls differ")
         worst = max(worst, err)
-    ms = time_cuda(lambda i: mux_score_cuda(meta, v, cost, normalize=False),
-                   iters=1000)
-    plain_ms = time_cuda(lambda i: mux_score_ref(meta, v, cost,
-                                                 normalize=False), iters=1000)
-    byts = 4 * (meta.numel() + v.numel() + cost.numel() + b * n)
-    flops = 2 * b * n * m + 4 * b * n
+    return worst
+
+
+def mux_bound_ms(b, s, d, m, n) -> tuple:
+    """(bound ms, bound_by) of one head-form call: h, w_out, v and cost
+    read once and the weights written once over HBM bandwidth, against
+    its fp32 operations (the pool's adds, the projection's FMAs, the dots)
+    at the fp32 peak."""
+    byts = 4 * (b * s * d + d * m + n * m + n + b * n)
+    flops = b * s * d + 2 * b * d * m + 2 * b * n * m + 6 * b * n
     t_bytes = byts / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOPS * 1e3
-    log(f"K2 time at B=1 M=32 N=2: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-        f"ms")
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "max_abs_err": worst}
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def time_mux_score(dev) -> dict:
+    """K2 at the served probe shape (B=1, S=64, d=128, M=32, N=2,
+    normalize=False): the head form eager (``time_cuda``), as a CUDA graph
+    (``time_cuda_graph``, the device's time) and the wrapper's host
+    microseconds a call; beside it, the same composed plain ops (mean,
+    matmul, tanh, ``mux_score_ref``) eager and as a graph (columns, never
+    a yardstick), and the meta form eager and as a graph at B=1, M=32,
+    N=2.  The operands are 49 KB and stay in L2 (warm), as h does on the
+    probe's path, where the trunk has just written it.  No single PyTorch
+    call computes the head, so there is no library time."""
+    import torch
+    from repro_torch.kernels.mux_score import mux_head_cuda, mux_score_cuda
+    from repro_torch.kernels.ref import mux_head_ref
+    b, s, d, m, n, norm = MUX_SERVED
+    h, w_out, v, cost = mux_inputs(torch.Generator().manual_seed(SEED + 21),
+                                   dev, b, s, d, m, n)
+    meta = torch.tanh(h.mean(1) @ w_out)
+
+    def head(i):
+        return mux_head_cuda(h, w_out, v, cost, normalize=norm)
+
+    def plain(i):
+        return mux_head_ref(h, w_out, v, cost, normalize=norm)
+
+    def meta_form(i):
+        return mux_score_cuda(meta, v, cost, normalize=norm)
+    row = {"shape": f"B={b} S={s} d={d} M={m} N={n}",
+           "ms": time_cuda(head, iters=1000),
+           "graph_ms": time_cuda_graph(head, iters=100),
+           "host_us": host_us(head),
+           "plain_ms": time_cuda(plain, iters=1000),
+           "plain_graph_ms": time_cuda_graph(plain, iters=100),
+           "meta_ms": time_cuda(meta_form, iters=1000),
+           "meta_graph_ms": time_cuda_graph(meta_form, iters=100)}
+    row["bound_ms"], row["bound_by"] = mux_bound_ms(b, s, d, m, n)
+    log(f"K2 head form at {row['shape']}: eager {row['ms']:.4f} ms, as a "
+        f"CUDA graph {row['graph_ms']:.4f} ms, host {row['host_us']:.1f} us "
+        f"a call, bound {row['bound_ms']:.3e} ms ({row['bound_by']}); plain "
+        f"ops eager {row['plain_ms']:.4f} ms, as a graph "
+        f"{row['plain_graph_ms']:.4f} ms; meta form eager "
+        f"{row['meta_ms']:.4f} ms, as a graph {row['meta_graph_ms']:.4f} ms")
+    return row
+
+
+def probe_server(dev, vocab: int = 50_304):
+    """A token-probe ``MuxServer`` at the served widths (d_model 128, 2
+    layers, meta_dim 32, two models), random weights from a seeded
+    generator, with a threshold between its weights on the prompts of
+    ``PROBE_SHAPES`` (so ``select`` takes the thresholded path, as the
+    zoo's does).  Returns (server, {(B, S): tokens on the device})."""
+    import torch
+    from repro_torch.core.multiplexer import init_mux, init_token_backbone
+    from repro_torch.serving.mux_server import MuxServer, MuxServerConfig
+    gen = torch.Generator(device=dev).manual_seed(SEED + 22)
+    backbone = init_token_backbone(gen, meta_dim=32, vocab_size=vocab,
+                                   d_model=128, num_layers=2, device=dev)
+    mux = init_mux(gen, backbone=backbone, model_names=["small", "large"],
+                   costs={"small": 2.4e9, "large": 1.6e10}, meta_dim=32,
+                   proj_dim=16, device=dev)
+    rng = np.random.default_rng(SEED + 22)
+    tokens = {bs: torch.as_tensor(rng.integers(0, vocab, bs).astype(np.int32),
+                                  device=dev) for bs in PROBE_SHAPES}
+    w = torch.cat([MuxServer(mux, [2.4e9, 1.6e10], device=dev).probe_eager(t)
+                   for t in tokens.values()])[:, 0]
+    thr = float(w.median())
+    return MuxServer(mux, [2.4e9, 1.6e10], MuxServerConfig(threshold=thr),
+                     device=dev), tokens
+
+
+def check_probe_graphs(dev, server, tokens) -> dict:
+    """The probe's and select's CUDA graphs against the eager functions
+    they capture, at ``PROBE_SHAPES`` in order (the first call of a shape
+    captures, the second replays): see :func:`graphed_probe_call`.
+    Returns each call's figures, with its wall ms (the capture's is the
+    stall the first probe of a new shape pays)."""
+    out = {}
+    for (b, s), t in tokens.items():
+        want_w = server.probe_eager(t)
+        want_a = server.select_eager(want_w)
+        for call in ("capture", "replay"):
+            out[f"B={b} S={s} {call}"] = graphed_probe_call(
+                server, t, want_w, want_a, f"probe graph B={b} S={s} ({call})",
+                capture=call == "capture")
+    return out
+
+
+def graphed_probe_call(server, t, want_w, want_a, tag, *, capture) -> dict:
+    """One graphed probe + select on tokens ``t`` against the eager
+    weights ``want_w`` and assignments ``want_a``: weights bitwise equal,
+    or within 1e-6 with the reason logged; assignments equal.  K2's
+    launches are measured by its wrapper's count: the probe graph's
+    capture tallies what its wrappers launched (K2 once, nothing else),
+    a first call counts its eager warm-up's K2 and its replay's, a later
+    call its replay's alone.  Returns the call's figures."""
+    import torch
+    from repro_torch.kernels import ops
+    torch.cuda.synchronize()
+    before = ops.launches["mux_score"]
+    t0 = time.perf_counter()
+    w = server.probe_weights(t)
+    a = server.select(w)
+    torch.cuda.synchronize()
+    call_ms = (time.perf_counter() - t0) * 1e3
+    k2 = ops.launches["mux_score"] - before
+    err = (w - want_w).abs().max().item()
+    same = torch.equal(w, want_w)
+    held = server._probe_graph.replay_launches(t)
+    log(f"{tag}: {call_ms:.3f} ms, weights "
+        f"{'bitwise equal' if same else f'max diff {err:.3e}'}, assignments "
+        f"{a.tolist()} (eager {want_a.tolist()}), K2 launches {k2}, a replay "
+        f"launches {held}")
+    if not same:
+        log(f"  {tag}: not bitwise: the graph's kernels are those of its "
+            f"capture (a library may pick another algorithm under "
+            f"capture); held within 1e-6")
+    check(err <= 1e-6, f"{tag}: weights differ by {err:.3e}")
+    check(torch.equal(a, want_a), f"{tag}: assignments {a.tolist()} != "
+          f"eager {want_a.tolist()}")
+    check(held == {"mux_score": 1}, f"{tag}: the probe graph's capture "
+          f"tallied {held}, not one K2 launch")
+    check(server._select_graph.replay_launches(w) == {},
+          f"{tag}: the select graph launches a counted kernel")
+    check(k2 == (2 if capture else 1), f"{tag}: {k2} K2 launches counted")
+    return {"bitwise": same, "max_diff": err, "call_ms": call_ms}
+
+
+def check_capture_race(dev, zoo) -> dict:
+    """A capture racing a prefill: while a backend-style thread runs
+    whole-prompt prefills of one 1024-token prompt on the zoo's first
+    engine (``transformer.prefill``: K3, cuBLAS, the caching allocator),
+    the zoo's server probes ``RACE_LENS`` prompt lengths under 64, each a
+    new shape, so each first call captures (thread-local capture) while
+    the other thread launches and allocates.  Each graphed probe is held
+    as in :func:`check_probe_graphs`; every prefill made during the race
+    is held against the same prefill run alone (bitwise, or within
+    1e-2 x its largest logit with the difference logged, same argmax).
+    Returns the calls' figures (the capture's wall ms under contention)
+    and the prefills'."""
+    import threading
+    import torch
+    from repro_torch.models import transformer as tf
+    server, eng = zoo["server"], zoo["engines"][0]
+    rng = np.random.default_rng(SEED + 23)
+    prompt = torch.as_tensor(rng.integers(0, 50_304, (1, 1024)).astype(
+        np.int32), device=dev)
+
+    def prefill():
+        return tf.prefill(eng.params, eng.cfg, prompt,
+                          cache_len=1024)[0].float()
+    want = prefill()
+    toks = {s: torch.as_tensor(rng.integers(0, 50_304, (1, s)).astype(
+        np.int32), device=dev) for s in RACE_LENS}
+    eager = {s: server.probe_eager(t) for s, t in toks.items()}
+    torch.cuda.synchronize()
+    started, stop = threading.Event(), threading.Event()
+    got, errors = [], []
+
+    def racer():
+        try:
+            while not stop.is_set() or len(got) < 2:
+                started.set()
+                out = prefill()
+                torch.cuda.current_stream().synchronize()
+                got.append(out)
+        except BaseException as e:       # reported by the main thread
+            errors.append(e)
+            started.set()
+
+    th = threading.Thread(target=racer, name="prefill-racer")
+    th.start()
+    started.wait()
+    calls = {}
+    try:
+        for s, t in toks.items():
+            w = eager[s]
+            calls[f"B=1 S={s} capture"] = graphed_probe_call(
+                server, t, w, server.select_eager(w),
+                f"capture race B=1 S={s} (capture)", capture=True)
+    finally:
+        stop.set()
+        th.join()
+    check(not errors, f"capture race: the prefill thread raised "
+          f"{errors[0]!r}" if errors else "")
+    diffs = [(g - want).abs().max().item() for g in got]
+    bitwise = sum(torch.equal(g, want) for g in got)
+    scale = want.abs().max().item()
+    log(f"capture race: {len(got)} prefills on the other thread, {bitwise} "
+        f"bitwise equal to the lone prefill, max diff {max(diffs):.3e} "
+        f"(largest logit {scale:.3e})")
+    for g, d in zip(got, diffs):
+        check(bool(torch.isfinite(g).all()) and d <= 1e-2 * scale
+              and torch.equal(g.argmax(-1), want.argmax(-1)),
+              f"capture race: a prefill differs by {d:.3e} from the lone "
+              f"prefill")
+    for s, t in toks.items():
+        w = eager[s]
+        calls[f"B=1 S={s} replay"] = graphed_probe_call(
+            server, t, w, server.select_eager(w),
+            f"capture race B=1 S={s} (replay)", capture=False)
+    return {"calls": calls, "prefills": len(got),
+            "prefills_bitwise": bitwise, "prefill_max_diff": max(diffs)}
+
+
+def time_probe(dev, server, tokens) -> dict:
+    """The whole probe (weights + select) at B=1, S=64, eager
+    (``probe_eager`` + ``select_eager``) against graphed
+    (``probe_weights`` + ``select``, one replay of each graph, the
+    tokens already on the card): ms a call by CUDA events (the stream's
+    time, host gaps included), host microseconds a call, and from
+    ``torch.profiler`` over 20 calls the device's busy ms and its kernel
+    and copy launches a probe."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    t = tokens[(1, 64)]
+    fns = {"eager": lambda i: server.select_eager(server.probe_eager(t)),
+           "graph": lambda i: server.select(server.probe_weights(t))}
+    rows = {}
+    for name, fn in fns.items():
+        row = {"ms": time_cuda(fn, iters=200), "host_us": host_us(fn)}
+        for i in range(3):
+            fn(i)
+        torch.cuda.synchronize()
+        calls = 20
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for i in range(calls):
+                fn(i)
+            torch.cuda.synchronize()
+        dev_rows = _device_rows(prof)
+        k2_rows = sum(c for _, c, k in dev_rows if "mux_score_kernel" in k)
+        check(k2_rows == calls, f"probe {name}: the profile shows "
+              f"{k2_rows} K2 launches in {calls} probes")
+        row["device_busy_ms"] = sum(r[0] for r in dev_rows) / calls
+        row["launches"] = sum(r[1] for r in dev_rows) / calls
+        row["top"] = [[round(ms / calls, 5), c // calls, k]
+                      for ms, c, k in dev_rows[:6]]
+        log(f"probe {name} at B=1 S=64: {row['ms']:.4f} ms a call (events), "
+            f"host {row['host_us']:.1f} us, device busy "
+            f"{row['device_busy_ms']:.4f} ms, {row['launches']:g} device "
+            f"launches a probe; top {row['top']}")
+        rows[name] = row
+    return rows
 
 
 def flash_inputs(gen, dev, b, s, t, h, kk, hd, vd, dtype):
@@ -908,22 +1249,9 @@ def check_scan_resources() -> dict:
     served one (bf16 x, n = 16 on 2 lanes:
     ``selective_scan_kernel<__nv_bfloat16, 2>``) must be there, and none
     may spill."""
-    from repro_torch.kernels import build
-    build.load("selective_scan")                # builds the source if needed
-    lines = build.build_log("selective_scan").splitlines()
-    found = {}
-    for i, ln in enumerate(lines):
-        if "Compiling entry" not in ln or "selective_scan_kernel" not in ln:
-            continue
-        key = ln.split("'")[1] if "'" in ln else ln.strip()
-        body = []
-        for nxt in lines[i + 1:]:
-            if "Compiling entry" in nxt:
-                break
-            if "registers" in nxt or "spill" in nxt:
-                body.append(nxt.replace("ptxas info    :", "").strip())
-        found[key] = "; ".join(body)
-        log(f"  selective_scan {key}: {found[key]}")
+    found = ptxas_entries("selective_scan", "selective_scan_kernel")
+    for key, text in found.items():
+        log(f"  selective_scan {key}: {text}")
     served = [k for k in found
               if "selective_scan_kernelI13__nv_bfloat16Li2EE" in k]
     check(len(served) == 1, f"no single ptxas entry for K4's served "
@@ -1116,6 +1444,10 @@ def build_zoo(dev, cfgs, num_pages, calib, *, max_len=2048, decode_batch=8,
     threshold = float((uniq[k - 1] + uniq[k]) / 2)
     server = MuxServer(mux, costs, MuxServerConfig(threshold=threshold),
                        engines=engines, device=dev)
+    # capture the served probe's graphs (B=1, 64 tokens) before the runs,
+    # so that no timed request pays a capture, as the reference's
+    # scheduler warms its jit cache before traffic
+    server.select(server.probe_weights(probe[:1]))
     if dev.type == "cuda":
         torch.cuda.synchronize()
     return {"engines": engines, "costs": costs, "server": server,
@@ -1557,7 +1889,9 @@ def check_served(stats, cfgs) -> None:
           f"{stats['launches']['flash_attention']} times, expected "
           f"layers x whole-prompt prefills = {k3_want}")
     check_wgmma_prefills("direct path", stats["launches"])
-    check(stats["launches"]["mux_score"] >= 1, "mux_score never launched")
+    check(stats["launches"]["mux_score"] == len(stats["prefill_ms"]),
+          f"direct path: mux_score launched {stats['launches']['mux_score']} "
+          f"times for {len(stats['prefill_ms'])} probes")
     check(any(e["cow"] > 0 for e in stats["engines"]),
           "no copy-on-write ran")
     check(any(e["prefill_tokens_computed"] < e["prompt_tokens_padded"]
@@ -1654,10 +1988,15 @@ def main(argv) -> int:
     sm90 = check_sm90_resources()
     k1_res = check_paged_resources()
     k4_res = check_scan_resources()
+    k2_res = check_mux_resources()
 
     k1_err = check_paged_attention(dev)
     k1 = time_paged_attention(dev)
-    k2 = check_mux_score(dev)
+    k2_err = check_mux_score(dev)
+    k2 = time_mux_score(dev)
+    probe_srv, probe_tokens = probe_server(dev)
+    probe = {"graphs_vs_eager": check_probe_graphs(dev, probe_srv,
+                                                   probe_tokens)}
     k3_err = check_flash_attention(dev)
     k3 = time_flash_attention(dev)
     check_model_against_cpu(dev)
@@ -1680,6 +2019,7 @@ def main(argv) -> int:
                     dtype=torch.bfloat16, on_logits=on_logits)
     log(f"zoo: setup {zoo['setup_s']:.1f} s, threshold "
         f"{zoo['threshold']:.6f}")
+    probe["capture_race"] = check_capture_race(dev, zoo)
 
     # phase 3: the direct path (probe -> prefill_into_pages -> decode)
     stats = serve(dev, zoo, prompts, new_tokens=new_tokens,
@@ -1737,6 +2077,9 @@ def main(argv) -> int:
     check(finite["seen"] > 0 and finite["bad"] == 0,
           f"phase 6: {finite['bad']} of {finite['seen']} logits tensors not "
           f"finite")
+    # last: its torch.profiler window leaves the host slower at every later
+    # launch, which would show in the served phases' decode rates
+    probe["by_path"] = time_probe(dev, probe_srv, probe_tokens)
 
     launches = run["launches"]
     kernels = [
@@ -1751,7 +2094,7 @@ def main(argv) -> int:
          "source": "src/repro_torch/csrc/mux_score.cu",
          "replaces": "src/repro/kernels/mux_score.py:47",
          "launches": launches["mux_score"],
-         "max_abs_err": k2["max_abs_err"], "ms": k2["ms"],
+         "max_abs_err": k2_err, "ms": k2["ms"], "graph_ms": k2["graph_ms"],
          "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
          "bound_by": k2["bound_by"], "library_ms": None},
         {"name": "flash_attention", "route": "cuda",
@@ -1771,7 +2114,8 @@ def main(argv) -> int:
     ]
     # launches: the scheduler path's run (K1-K3) and phase 6's falcon-mamba
     # run (K4); plain_ms is the plain PyTorch version's time, no yardstick
-    # of speed
+    # of speed; K2's ms / bound are its head form's at the served probe
+    # shape (graph_ms: the same as a CUDA graph, as the probe runs it)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"paged_attention_ptxas": k1_res,
                       "paged_attention_by_shape": k1["shapes"]}), flush=True)
@@ -1800,6 +2144,8 @@ def main(argv) -> int:
         "prefill_ms", "decode_tokens_per_s", "median_decode_step_ms",
         "prefills", "launches", "profile")} for arch, r in ring.items()}}),
         flush=True)
+    print(json.dumps({"probe": {"mux_score_ptxas": k2_res, "mux_score": k2,
+                                **probe}}), flush=True)
     return finish()
 
 

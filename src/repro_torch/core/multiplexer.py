@@ -5,6 +5,9 @@ head.
 
 Port of the token branch of ``repro.core.multiplexer``: a 2-layer
 transformer probe over the prompt prefix produces the meta-features.
+The probe is split into its trunk (tokens -> last hidden states) and
+its head (mean pool, out projection, tanh), which the serving path
+fuses with Eq. 5-6 into one kernel (``ops.mux_head``).
 The image backbone comes with the CNN zoo.  Params are plain dicts of
 tensors with the JAX package's tree (``repro_torch.convert`` carries
 them across).
@@ -21,6 +24,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.layers import dense_init, truncated_normal
 
 Params = Dict[str, Any]
+PROBE_LEN = 64          # prompt tokens the token probe reads
 
 
 def init_token_backbone(generator: Optional[torch.Generator] = None, *,
@@ -49,27 +53,35 @@ def init_token_backbone(generator: Optional[torch.Generator] = None, *,
     return p
 
 
-def _token_backbone_forward(p: Params, tokens, *, probe_len: int = 64,
-                            num_heads: int = 4) -> torch.Tensor:
-    """tokens (B, S) -> meta (B, meta_dim).  Mean-pooled 2-layer
-    causal encoder over the first ``probe_len`` tokens."""
+def token_trunk(p: Params, tokens, *, probe_len: int = PROBE_LEN,
+                num_heads: int = 4) -> torch.Tensor:
+    """tokens (B, S) -> the probe's last hidden states h (B, min(S,
+    probe_len), d): the 2-layer causal encoder over the first
+    ``probe_len`` tokens.  ``tokens`` already on the params' device (as
+    the server passes them) is used in place, so the function has no
+    host transfer and no host read and can be captured in a CUDA graph."""
     probe = torch.as_tensor(tokens, device=p["embed"].device)[:, :probe_len]
     h = p["embed"][probe.long()]
     b, s, d = h.shape
     nh = num_heads
     hd = d // nh
-    pos = torch.arange(s, device=h.device)
-    mask = pos[None, :] <= pos[:, None]
+    mask = torch.ones((s, s), dtype=torch.bool, device=h.device).tril_()
     for lp in p["layers"]:
         qkv = (h @ lp["wqkv"]).reshape(b, s, 3, nh, hd)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
         sc = torch.einsum("bshd,bthd->bhst", q, k) / math.sqrt(hd)
-        sc = torch.where(mask[None, None], sc, torch.full_like(sc, -1e30))
+        sc = torch.where(mask, sc, -1e30)
         att = torch.einsum("bhst,bthd->bshd", torch.softmax(sc, -1), v)
         h = h + att.reshape(b, s, d) @ lp["wo"]
         h = h + F.gelu(h @ lp["up"], approximate="tanh") @ lp["down"]
-    pooled = h.mean(dim=1)
-    return torch.tanh(pooled @ p["out"])
+    return h
+
+
+def _token_backbone_forward(p: Params, tokens, **static) -> torch.Tensor:
+    """tokens (B, S) -> meta (B, meta_dim): the trunk, mean-pooled, out
+    projection, tanh (the head ``ops.mux_head`` fuses)."""
+    h = token_trunk(p, tokens, **static)
+    return torch.tanh(h.mean(dim=1) @ p["out"])
 
 
 def backbone_forward(params: Params, x, **static) -> torch.Tensor:

@@ -1,0 +1,106 @@
+"""Shape-keyed CUDA-graph capture: the port's counterpart of the shape
+cache ``jax.jit`` keeps for the reference's compiled stages.
+
+:class:`CudaGraphed` wraps a function of fixed-shape CUDA tensors.  The
+first call with a new signature (the shapes, dtypes and device of the
+arguments) allocates static inputs, runs the function once on a side
+stream to warm it up (its kernels load, its libraries pick their
+algorithms and allocate their workspaces), then captures one call into a
+``torch.cuda.CUDAGraph``.  Every call copies the arguments into that
+signature's static inputs, replays the graph on the current stream and
+returns clones of the static outputs, which the next replay overwrites.
+The capture tallies the kernel launches its wrappers record
+(``ops.tally_launches``: a captured call launches nothing), and every
+replay adds that tally to ``ops.launches``, since a replay launches
+what was captured.  The warm-up launches and counts as any eager call.
+
+Capture uses ``capture_error_mode="thread_local"``: other threads may
+keep launching work (prefills on a backend's executor threads) while one
+thread captures.  A lock covers copy, replay and clone, and each call's
+stream waits for the previous call's clones, so callers on different
+threads or streams never see each other's outputs.  It is CUDA-only:
+any argument that is not a CUDA tensor raises, and a capture that fails
+raises; nothing falls back to running the function eagerly.
+"""
+from __future__ import annotations
+
+import threading
+from typing import Callable, Dict, NamedTuple, Tuple
+
+import torch
+
+from repro_torch.kernels import ops
+
+Signature = Tuple[Tuple[Tuple[int, ...], torch.dtype, torch.device], ...]
+
+
+class _Captured(NamedTuple):
+    graph: "torch.cuda.CUDAGraph"
+    inputs: Tuple[torch.Tensor, ...]      # static: copied into each call
+    outputs: Tuple[torch.Tensor, ...]     # static: overwritten each replay
+    single: bool                          # fn returned one tensor
+    launches: Dict[str, int]              # kernel launches of one replay
+
+
+class CudaGraphed:
+    """``fn(*tensors) -> tensor | tuple of tensors``, replayed from one
+    CUDA graph per argument signature."""
+
+    def __init__(self, fn: Callable, name: str = ""):
+        self.fn = fn
+        self.name = name or getattr(fn, "__name__", "fn")
+        self._graphs: Dict[Signature, _Captured] = {}
+        self._lock = threading.Lock()
+        self._done = None          # recorded after each call's clones
+
+    def __call__(self, *args: torch.Tensor):
+        for a in args:
+            if not isinstance(a, torch.Tensor) or a.device.type != "cuda":
+                raise ValueError(
+                    f"CudaGraphed({self.name}) takes CUDA tensors only, got "
+                    f"{a.device if isinstance(a, torch.Tensor) else type(a)}")
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"CudaGraphed({self.name}): CUDA is not "
+                               "available")
+        sig = tuple((tuple(a.shape), a.dtype, a.device) for a in args)
+        dev = args[0].device
+        with self._lock, torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev)
+            if self._done is None:
+                self._done = torch.cuda.Event()
+            stream.wait_event(self._done)     # the last call's clones
+            entry = self._graphs.get(sig)
+            if entry is None:
+                entry = self._capture(args)
+                self._graphs[sig] = entry
+            for dst, src in zip(entry.inputs, args):
+                dst.copy_(src)
+            entry.graph.replay()
+            ops.add_launches(entry.launches)
+            outs = tuple(o.clone() for o in entry.outputs)
+            self._done.record(stream)
+        return outs[0] if entry.single else outs
+
+    def replay_launches(self, *args: torch.Tensor) -> Dict[str, int]:
+        """The kernel launches one replay makes for the signature of
+        ``args`` (by wrapper, as ``ops.launches`` counts them); raises
+        if that signature was never captured."""
+        sig = tuple((tuple(a.shape), a.dtype, a.device) for a in args)
+        return dict(self._graphs[sig].launches)
+
+    def _capture(self, args) -> _Captured:
+        dev = args[0].device
+        inputs = tuple(a.clone() for a in args)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self.fn(*inputs)                  # warm-up, not kept
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with ops.tally_launches() as tally, \
+                torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            out = self.fn(*inputs)
+        single = isinstance(out, torch.Tensor)
+        outputs = (out,) if single else tuple(out)
+        return _Captured(graph, inputs, outputs, single,
+                         {k: n for k, n in tally.items() if n})

@@ -9,16 +9,22 @@ cannot serve raises instead of computing elsewhere.
 plain path does not count), so a run can show that its main path went
 through the kernels; K3's wrapper also counts each launch under the
 variant it launched (``flash_attention_wgmma`` or
-``flash_attention_simt``).  Counter reads and resets belong to the caller
-(``reset_launches``).
+``flash_attention_simt``).  K2's two forms both count under
+``mux_score``.  A call made while its thread captures a CUDA graph
+launches nothing: inside :func:`tally_launches` it adds to that
+capture's tally instead, and each replay of the graph adds the tally to
+``launches`` (``repro_torch.graphs.CudaGraphed``).  Counter reads and
+resets belong to the caller (``reset_launches``).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+import contextlib
+import threading
+from typing import Dict, Iterator, Optional
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import flash_attention_cuda
-from repro_torch.kernels.mux_score import mux_score_cuda
+from repro_torch.kernels.mux_score import mux_head_cuda, mux_score_cuda
 from repro_torch.kernels.paged_attention import (paged_attention_cuda,
                                                  paged_attention_plain)
 from repro_torch.kernels.selective_scan import selective_scan_cuda
@@ -28,9 +34,38 @@ launches: Dict[str, int] = {"paged_attention": 0, "mux_score": 0,
                              "flash_attention_simt": 0, "selective_scan": 0}
 
 
+_capture = threading.local()
+
+
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+
+
+def _counts() -> Dict[str, int]:
+    """Where this thread's launches count: ``launches``, or the open
+    tally of a capture on this thread."""
+    tally = getattr(_capture, "tally", None)
+    return launches if tally is None else tally
+
+
+@contextlib.contextmanager
+def tally_launches() -> Iterator[Dict[str, int]]:
+    """While open, the wrappers called on this thread (and only on it)
+    add their launches to the yielded tally, not to ``launches``: for a
+    capture, whose replays launch what it recorded."""
+    outer = getattr(_capture, "tally", None)
+    _capture.tally = dict.fromkeys(launches, 0)
+    try:
+        yield _capture.tally
+    finally:
+        _capture.tally = outer
+
+
+def add_launches(tally: Dict[str, int]) -> None:
+    """Count the launches of a tally (one replay of a captured graph)."""
+    for name, n in tally.items():
+        launches[name] += n
 
 
 def attention(q, k, v, *, causal: bool = True,
@@ -51,7 +86,7 @@ def attention(q, k, v, *, causal: bool = True,
     return flash_attention_cuda(q.contiguous(), k.contiguous(),
                                 v.contiguous(), causal=causal, window=window,
                                 chunk=chunk, logit_cap=logit_cap, scale=scale,
-                                counts=launches)
+                                counts=_counts())
 
 
 def paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
@@ -77,7 +112,7 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
                                      lengths, **kw)
     out = paged_attention_cuda(q, k_pages, v_pages, block_tables, lengths,
                                prefetch=prefetch, **kw)
-    launches["paged_attention"] += 1
+    _counts()["paged_attention"] += 1
     return out
 
 
@@ -90,7 +125,7 @@ def selective_scan(x, dt, b_mat, c_mat, a_mat, d_vec, h0=None):
         return ref.selective_scan_ref(x, dt, b_mat, c_mat, a_mat, d_vec, h0)
     out = selective_scan_cuda(x.contiguous(), dt, b_mat, c_mat, a_mat, d_vec,
                               h0)
-    launches["selective_scan"] += 1
+    _counts()["selective_scan"] += 1
     return out
 
 
@@ -100,5 +135,16 @@ def mux_score(meta, v, cost, *, normalize: bool = True):
     if meta.device.type == "cpu":
         return ref.mux_score_ref(meta, v, cost, normalize=normalize)
     out = mux_score_cuda(meta, v, cost, normalize=normalize)
-    launches["mux_score"] += 1
+    _counts()["mux_score"] += 1
+    return out
+
+
+def mux_head(h, w_out, v, cost, *, normalize: bool):
+    """The token probe's fused head: weights (B, N) fp32 from its last
+    hidden states h (B, S, d), the out projection w_out (d, M), v (N, M)
+    and cost (N,) raised to the cost exponent."""
+    if h.device.type == "cpu":
+        return ref.mux_head_ref(h, w_out, v, cost, normalize=normalize)
+    out = mux_head_cuda(h, w_out, v, cost, normalize=normalize)
+    _counts()["mux_score"] += 1
     return out

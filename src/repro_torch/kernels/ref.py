@@ -4,7 +4,9 @@ CUDA kernels are held against, and what the dispatch layer
 
 Ports of ``repro.kernels.ref.flash_attention_ref``,
 ``paged_attention_ref``, ``selective_scan_ref`` (with a start state
-``h0``) and ``mux_score_ref``.  They repeat the kernels' arithmetic
+``h0``) and ``mux_score_ref``, with ``mux_head_ref``, the probe's
+whole fused head (mean pool, out projection and tanh before
+``mux_score_ref``).  They repeat the kernels' arithmetic
 at full materialisation and are no yardstick of speed.
 """
 from __future__ import annotations
@@ -131,3 +133,15 @@ def mux_score_ref(meta, v, cost, *, normalize: bool = True) -> torch.Tensor:
                             min=1e-6)
     logits = m @ v.float().T / cost.float()[None, :]
     return torch.softmax(logits, dim=-1)
+
+
+def mux_head_ref(h, w_out, v, cost, *, normalize: bool) -> torch.Tensor:
+    """The token probe's fused head: meta = tanh(mean_s(h) @ w_out), then
+    :func:`mux_score_ref`.
+
+    h: (B, S, d) the probe's last hidden states; w_out: (d, M); v: (N, M);
+    cost: (N,) relative FLOPs already raised to the cost exponent.
+    Returns (B, N) fp32.
+    """
+    meta = torch.tanh(h.float().mean(dim=1) @ w_out.float())
+    return mux_score_ref(meta, v, cost, normalize=normalize)

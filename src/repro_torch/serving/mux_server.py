@@ -2,11 +2,16 @@
 layer, for LLM zoos.
 
 Port of the decomposed stages of ``repro.serving.mux_server``: a
-lightweight token-probe mux scores every incoming request through the
-fused head (``ops.mux_score``: the CUDA kernel on the GPU),
+lightweight token-probe mux scores every incoming request (the probe's
+trunk, then its fused head ``ops.mux_head``: K2 on the GPU),
 ``select`` picks a zoo model, and ``probe`` prewarms the selected
 engine's logit cache so the follow-up admission pays the prompt's
-prefill once.  ``serve`` and ``model_step`` over the single-program
+prefill once.  The reference compiles the two stages with ``jax.jit``;
+on a CUDA device the port replays each as a CUDA graph
+(``repro_torch.graphs``), keyed by shape as ``jax.jit``'s cache is:
+the probe by (B, min(S, probe_len)), select by B.  On the CPU the same
+functions (:meth:`MuxServer.probe_eager`, :meth:`MuxServer.select_eager`)
+run eagerly.  ``serve`` and ``model_step`` over the single-program
 ``multiplexed_apply`` come with the CNN zoo.
 """
 from __future__ import annotations
@@ -18,8 +23,9 @@ import numpy as np
 import torch
 
 from repro_torch.core import routing
-from repro_torch.core.multiplexer import backbone_forward
+from repro_torch.core.multiplexer import PROBE_LEN, token_trunk
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.graphs import CudaGraphed
 from repro_torch.kernels import ops
 
 
@@ -49,22 +55,48 @@ class MuxServer:
                                      device=self.device)
         self.cfg = cfg or MuxServerConfig()
         self.engines = list(engines) if engines is not None else None
+        # the config is frozen, so cost_rel ** alpha is computed once
+        self.cost_pow = mux_params["cost_rel"] ** self.cfg.cost_exponent
+        self._probe_graph = self._select_graph = None
+        if self.device.type == "cuda":
+            self._probe_graph = CudaGraphed(self.probe_eager, "probe")
+            self._select_graph = CudaGraphed(self.select_eager, "select")
 
     @property
     def num_models(self) -> int:
         return int(self.costs.shape[0])
 
+    def probe_eager(self, tokens: torch.Tensor) -> torch.Tensor:
+        """The probe on tokens (B, S <= probe_len) already on the
+        server's device: the trunk, then the fused head
+        (``normalize=False``) -> weights (B, N).  The function the
+        probe's CUDA graph captures."""
+        bb = self.mux_params["backbone"]
+        h = token_trunk(bb, tokens)
+        return ops.mux_head(h, bb["out"], self.mux_params["v"],
+                            self.cost_pow, normalize=False)
+
+    def select_eager(self, w: torch.Tensor) -> torch.Tensor:
+        """Weights (B, N) -> model ids (B,) under the configured policy.
+        The function the select CUDA graph captures."""
+        return routing.select_model(w, self.costs, self.cfg.threshold)
+
     def probe_weights(self, x) -> torch.Tensor:
         """Mux probe on a batch of prompts: tokens (B, S) -> weights
-        (B, N), through the fused head with ``normalize=False``."""
-        meta = backbone_forward(self.mux_params["backbone"], x)
-        return ops.mux_score(meta, self.mux_params["v"],
-                             self.mux_params["cost_rel"]
-                             ** self.cfg.cost_exponent, normalize=False)
+        (B, N).  The first ``probe_len`` tokens go to the device here,
+        outside any graph; on a CUDA device the probe is a replay of its
+        graph for (B, min(S, probe_len))."""
+        tokens = torch.as_tensor(x)[:, :PROBE_LEN].to(self.device)
+        if self._probe_graph is None:
+            return self.probe_eager(tokens)
+        return self._probe_graph(tokens)
 
     def select(self, w: torch.Tensor) -> torch.Tensor:
-        """Weights (B, N) -> model ids (B,) under the configured policy."""
-        return routing.select_model(w, self.costs, self.cfg.threshold)
+        """Weights (B, N) -> model ids (B,) under the configured policy;
+        on a CUDA device a replay of the select graph for B."""
+        if self._select_graph is None:
+            return self.select_eager(w)
+        return self._select_graph(w)
 
     def probe(self, x) -> Dict[str, Any]:
         """Score ``x`` (B, S) exactly like admission does and — when

@@ -16,9 +16,12 @@ import pytest
 import torch
 
 from repro.kernels import ref as jref
+from repro.kernels.mux_score import mux_score as jax_mux_score
 from repro.kernels.paged_attention import decode_hbm_bytes as jax_bytes
 from repro.kernels.paged_attention import decode_prefetch as jax_prefetch
+from repro_torch.graphs import CudaGraphed
 from repro_torch.kernels import build, ops
+from repro_torch.kernels.mux_score import mux_head_cuda, mux_score_cuda
 from repro_torch.kernels.paged_attention import (decode_hbm_bytes,
                                                  decode_prefetch,
                                                  paged_attention_cuda)
@@ -238,6 +241,29 @@ def test_mux_score_sweep(b, m, n, normalize):
     np.testing.assert_allclose(_np(got).sum(-1), 1.0, atol=1e-5)
 
 
+@pytest.mark.parametrize("b,s,d,m,n,normalize", [
+    (1, 64, 128, 32, 2, False),                                  # served
+    (3, 1, 32, 8, 2, True), (5, 17, 96, 24, 6, True),
+    (2, 64, 128, 32, 16, False),
+])
+def test_mux_head_matches_jax_composition(b, s, d, m, n, normalize):
+    """K2's head form (the probe's mean pool, out projection and tanh
+    fused before Eq. 5-6) on the CPU against the JAX composition: the
+    same steps in jnp into the Pallas ``mux_score`` in interpret mode."""
+    rs = np.random.RandomState(100 + 7 * b + s)
+    h = rs.standard_normal((b, s, d)).astype(np.float32)
+    w_out = (rs.standard_normal((d, m)) / np.sqrt(d)).astype(np.float32)
+    v = rs.standard_normal((n, m)).astype(np.float32)
+    c = (np.arange(1.0, n + 1) ** 0.5).astype(np.float32)   # cost ** alpha
+    got = ops.mux_head(_t(h), _t(w_out), _t(v), _t(c), normalize=normalize)
+    meta = jnp.tanh(jnp.mean(jnp.asarray(h), 1) @ jnp.asarray(w_out))
+    want = jax_mux_score(meta, jnp.asarray(v), jnp.asarray(c),
+                         normalize=normalize, interpret=True)
+    assert got.dtype == torch.float32 and got.shape == (b, n)
+    np.testing.assert_allclose(_np(got), _np(want), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(_np(got).sum(-1), 1.0, atol=1e-5)
+
+
 def test_cuda_requests_never_fall_back_to_cpu():
     """A tensor that is not on the CPU goes to the kernel path, which
     refuses it here (no CUDA) instead of computing on the CPU; the
@@ -257,7 +283,84 @@ def test_cuda_requests_never_fall_back_to_cpu():
     with pytest.raises((RuntimeError, ValueError)):
         paged_attention_cuda(q.to("cpu"), pages.to("cpu"), pages.to("cpu"),
                              bt.to("cpu"), ln.to("cpu"))
+    h = torch.zeros((1, 3, 8))
+    w_out, v, c = torch.zeros((8, 4)), torch.zeros((2, 4)), torch.ones((2,))
+    with pytest.raises((RuntimeError, ValueError)):
+        ops.mux_head(h.to("meta"), w_out.to("meta"), v.to("meta"),
+                     c.to("meta"), normalize=False)
+    with pytest.raises((RuntimeError, ValueError)):
+        mux_head_cuda(h, w_out, v, c, normalize=False)
+    with pytest.raises((RuntimeError, ValueError)):
+        mux_score_cuda(torch.zeros((1, 4)), v, c)
+    # the CUDA-graph helper takes CUDA tensors only: no eager fallback
+    graphed = CudaGraphed(lambda t: ops.mux_score(t, v, c), "head")
+    for dev in ("meta", "cpu"):
+        with pytest.raises((RuntimeError, ValueError)):
+            graphed(torch.zeros((1, 4), device=dev))
+    assert not graphed._graphs            # nothing was captured
     assert ops.launches == before
+
+
+def _stub_kernel(*args, counts=None, **kw):
+    """A kernel wrapper's stand-in (no card here): returns its first
+    operand, and counts as K3's wrapper does where it is handed counts."""
+    if counts is not None:
+        counts["flash_attention"] += 1
+        counts["flash_attention_wgmma"] += 1
+    return args[0]
+
+
+_META = dict(device="meta")
+WRAPPER_CALLS = {
+    "mux_head": ("mux_head_cuda", "mux_score", lambda: ops.mux_head(
+        torch.zeros((1, 3, 8), **_META), torch.zeros((8, 4), **_META),
+        torch.zeros((2, 4), **_META), torch.ones((2,), **_META),
+        normalize=False)),
+    "mux_score": ("mux_score_cuda", "mux_score", lambda: ops.mux_score(
+        torch.zeros((1, 4), **_META), torch.zeros((2, 4), **_META),
+        torch.ones((2,), **_META))),
+    "paged_attention": ("paged_attention_cuda", "paged_attention",
+                        lambda: ops.paged_attention(
+                            torch.zeros((1, 2, 8), **_META), None, None,
+                            None, None)),
+    "selective_scan": ("selective_scan_cuda", "selective_scan",
+                       lambda: ops.selective_scan(
+                           torch.zeros((1, 2, 4), **_META), None, None,
+                           None, None, None)),
+    "attention": ("flash_attention_cuda", "flash_attention",
+                  lambda: ops.attention(
+                      *[torch.zeros((1, 4, 2, 8), dtype=torch.bfloat16,
+                                    **_META)] * 3)),
+}
+
+
+@pytest.mark.parametrize("wrapper", sorted(WRAPPER_CALLS))
+def test_captured_launches_go_to_the_capturing_threads_tally(monkeypatch,
+                                                              wrapper):
+    """A wrapper called while its thread holds a tally open (a CUDA-graph
+    capture, which launches nothing) adds to that tally and not to
+    ``ops.launches``; the same wrapper on another thread meanwhile counts
+    in ``ops.launches``; ``add_launches`` (one replay) counts the tally.
+    The kernels are stubs: there is no card here."""
+    import threading
+    kernel, key, call = WRAPPER_CALLS[wrapper]
+    monkeypatch.setattr(ops, kernel, _stub_kernel)
+    monkeypatch.setattr(ops, "launches", dict.fromkeys(ops.launches, 0))
+    call()
+    assert ops.launches[key] == 1
+    with ops.tally_launches() as tally:
+        call()
+        with ops.tally_launches() as inner:    # a nested capture
+            call()
+        other = threading.Thread(target=call)
+        other.start()
+        other.join()
+        call()
+    assert tally[key] == 2 and inner[key] == 1
+    assert ops.launches[key] == 2                 # the eager + the thread's
+    ops.add_launches(tally)
+    assert ops.launches[key] == 4
+    assert sum(ops.launches.values()) == (8 if wrapper == "attention" else 4)
 
 
 def test_kernel_build_needs_nvcc(monkeypatch):

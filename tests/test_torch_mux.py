@@ -2,8 +2,10 @@
 with the same (converted) mux params.
 
 mux_forward weights and meta-features agree to atol=1e-5 (fp32);
-probe_weights goes through the fused head (``ops.mux_score``,
-normalize=False) on both sides; the model assignments of ``select``
+probe_weights goes through the fused head on both sides (the JAX
+server's ``ops.mux_score`` on the meta-features, the port's
+``ops.mux_head`` on the probe's trunk, normalize=False), for prompts
+shorter and longer than the probe; the model assignments of ``select``
 (argmax and thresholded) and of ``probe`` with engines attached are
 identical, and ``probe`` prewarms the same logits into the selected
 engines.
@@ -28,6 +30,7 @@ from repro_torch import convert
 from repro_torch.configs.base import LayerSpec as TLayerSpec
 from repro_torch.configs.base import ModelConfig as TModelConfig
 from repro_torch.core import multiplexer as tmux
+from repro_torch.kernels import ops
 from repro_torch.serving.engine import Engine, ServeConfig
 from repro_torch.serving.mux_server import MuxServer, MuxServerConfig
 
@@ -53,6 +56,47 @@ def _mux_params():
 def _prompts(b=6, s=12, seed=0):
     return np.random.RandomState(seed).randint(0, VOCAB, (b, s)
                                                ).astype(np.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_servers():
+    """The JAX servers of the split-probe cases, argmax and thresholded
+    (one jit cache each across the cases)."""
+    jmux, _ = _mux_params()
+    fns = [lambda b: b, lambda b: b]
+    return {thr: JaxMuxServer(jmux, fns, COSTS,
+                              JaxMuxServerConfig(threshold=thr))
+            for thr in (None, 0.5)}
+
+
+@pytest.mark.parametrize("b,s", [(1, 12), (4, 12), (1, 80), (4, 80)])
+def test_split_probe_matches_jax(b, s):
+    """The probe split into its trunk (tokens -> h) and the fused head
+    (``ops.mux_head``) against the JAX server's ``probe_weights`` and
+    ``select``, for prompts shorter (S = 12) and longer (S = 80) than the
+    probe's 64 tokens: weights to atol=1e-5, assignments identical.
+    The server's ``probe_weights`` is that composition, and the meta
+    path (``backbone_forward``) is the head's mean, projection and tanh
+    of the same trunk."""
+    _, tparams = _mux_params()
+    bb = tparams["backbone"]
+    x = _prompts(b=b, s=s, seed=20 + s + b)
+    h = tmux.token_trunk(bb, torch.from_numpy(x))
+    assert h.shape == (b, min(s, 64), 32)
+    split = ops.mux_head(h, bb["out"], tparams["v"], tparams["cost_rel"],
+                         normalize=False)
+    meta = tmux.backbone_forward(bb, torch.from_numpy(x))
+    torch.testing.assert_close(meta, torch.tanh(h.mean(1) @ bb["out"]),
+                               rtol=0, atol=0)
+    for thr, js in _jax_servers().items():
+        ts = MuxServer(tparams, COSTS, MuxServerConfig(threshold=thr),
+                       device="cpu")
+        tw = ts.probe_weights(x)
+        torch.testing.assert_close(tw, split, rtol=0, atol=0)
+        jw = js.probe_weights(x)
+        np.testing.assert_allclose(tw.numpy(), np.asarray(jw), atol=1e-5)
+        np.testing.assert_array_equal(ts.select(tw).numpy(),
+                                      np.asarray(js.select(jw)))
 
 
 @pytest.mark.parametrize("cost_exponent", [1.0, 0.0])

@@ -40,7 +40,7 @@ def test_scan_sees_the_whole_port():
             "flash_attention.py", "backend.py", "runtime.py", "request.py",
             "metrics.py", "batcher.py", "traffic.py", "tracer.py",
             "gauges.py", "mamba.py", "selective_scan.py", "serve.py",
-            "falcon_mamba_7b.py"} <= names
+            "falcon_mamba_7b.py", "graphs.py"} <= names
     assert (ROOT / "src" / "repro_torch" / "launch" / "serve.py") in FILES
     assert not _forbidden("repro_torch.kernels")
     assert _forbidden("repro.kernels") and _forbidden("jax.numpy")
