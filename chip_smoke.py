@@ -96,7 +96,21 @@ Phases, each of which must pass:
    three new shapes (S = 23, 40, 57) while another thread runs
    whole-prompt prefills on olmo-1b: the graphed probes against the
    eager ones, and every racing prefill against the same prefill run
-   alone.
+   alone.  Every paged decode step of phases 3-5 replays one of the
+   engine's two CUDA graphs (the plain step and the one with the fused
+   copy-on-write), captured when the pools are made, before any
+   request (their capture seconds are printed).  Before the run, on
+   each engine: each capture must tally one ``paged_attention`` launch
+   a layer; requests A, B (A's prompt, 333 tokens, so B maps A's partly
+   filled boundary page) and C decode 6 tokens in one batch of 8 rows,
+   each step run eagerly (the function the graph captured) and then as
+   the graph on the same operand: logits bitwise equal, or within 2e-2
+   with the reason logged, and the same greedy tokens; the first step
+   copies on write for A only; one sampled request (temperature 0.8)
+   gives the same tokens graphed, graphed again and eager.  Phase 3
+   then runs twice, graphed and with the eager steps: the same tokens
+   for every request, and the median step ms, host microseconds a step
+   call and decode tokens/s of both.
 4. The scheduler path on the same zoo, the serving entry point users
    call: ``PagedLLMScheduler`` over one ``InProcessBackend`` per
    engine, ``select_fn`` = the mux probe, whole-prompt prefill.  16
@@ -125,12 +139,22 @@ Phases, each of which must pass:
    way (K3 on the ring prefill, ``cache_prefill``).  Checks: tokens of
    shape (2, 1056) and (2, 264); every logit finite; per prefill call,
    ``selective_scan`` launched 64 times (falcon-mamba) or
-   ``flash_attention`` 16 times (olmo-1b) and no other kernel.
+   ``flash_attention`` 16 times (olmo-1b) and no other kernel.  Each
+   ring decode step replays the graph captured when the engine made its
+   ring caches; a third ``generate`` with the step run eagerly must
+   give the same tokens, and 16 steps from one prefill, eager and then
+   graphed from the same saved caches, must give the same tokens and
+   logits bitwise equal or within 2e-2 (median step ms and host
+   microseconds of each).
 7. Last, since a ``torch.profiler`` window slows the host's later
    launches: the whole probe (weights + select) at B=1, S=64, eager
    against graphed: ms a call, host microseconds a call, and device
    busy ms and launches a probe from ``torch.profiler``, whose rows
-   must show ``mux_score_kernel`` once a probe on either path.
+   must show ``mux_score_kernel`` once a probe on either path.  With
+   ``--profile`` the profiled sections (one 1024-token prefill per
+   engine, a graphed decode step 2 of a rerun of phase 3, and of phase
+   6 one prefill, one graphed and one eager ring step) follow the
+   served phases they read from.
 
 Output: progress lines, then the ``{"kernels": [...]}`` JSON line (the
 launches are phase 4's for K1-K3 and phase 6's falcon-mamba run for K4),
@@ -140,9 +164,13 @@ line of K3's tensor-core variant's ptxas resources and its
 times at each served shape beside SDPA and the bound, a JSON line of
 the direct path's per-request admission ms and decode tokens/s and,
 for phases 4 and 5, the launches, TTFT p50/p99 and decode tokens/s per
-model, a JSON line of phase 6's prefill ms, decode tokens/s, median
-decode step ms and launches per model (with ``--profile`` also device
-busy ms of the prefill, K4's share of it, and of one decode step), a
+model, a JSON line of phase 6's prefill ms, decode tokens/s (graphed and
+eager), median decode step ms, the ring step's capture seconds and its
+eager-against-graphed steps, and launches per model (with ``--profile``
+also device busy ms of the prefill, K4's share of it, and of one
+graphed and one eager decode step), a ``{"decode_graphs": ...}`` line
+(the paged steps' captures and checks, and phase 3's step ms, host
+microseconds and tokens/s graphed and eager), a
 ``{"probe": ...}`` line (K2's ptxas resources and times, the graphs
 against the eager probe, the probe eager against graphed), the
 card's name and power limit (nvidia-smi), and as the last line
@@ -1455,26 +1483,184 @@ def build_zoo(dev, cfgs, num_pages, calib, *, max_len=2048, decode_batch=8,
             "threshold": threshold, "setup_s": time.perf_counter() - t0}
 
 
-def init_pools(zoo) -> None:
-    """Fresh page pools (and engine counters) for a served run."""
+def init_pools(zoo) -> dict:
+    """Fresh page pools (and engine counters) for a served run, and on
+    the card both paged decode steps captured before it (as a backend's
+    warmup does), so that every step of the run replays a graph.
+    Returns each engine's capture seconds by step."""
+    stalls = {}
     for eng, pages in zip(zoo["engines"], zoo["num_pages"]):
         eng.init_paged(num_pages=pages, page_size=64,
                        decode_batch=zoo["decode_batch"], logit_cache=8)
+        stalls[eng.cfg.name] = eng.capture_decode_steps()
+    if zoo["engines"][0].device.type == "cuda":
+        import torch
+        log(f"pools made and decode steps captured: "
+            f"{torch.cuda.memory_allocated() / 1e9:.3f} GB allocated")
+    return stalls
 
 
-def serve(dev, zoo, prompts, *, new_tokens=32, profile_step=None):
+def _eager(step):
+    """The function a graphed step captured (a CPU engine's step is that
+    function already)."""
+    return getattr(step, "fn", step)
+
+
+def same_logits(tag, got, want) -> dict:
+    """A graphed step's logits against the eager step's on the same
+    inputs: bitwise equal, or within ``BF16_TOL`` with the reason logged;
+    the argmax (the greedy token) of every row equal either way."""
+    import torch
+    same = torch.equal(got, want)
+    err = (got.float() - want.float()).abs().max().item()
+    if not same:
+        log(f"  {tag}: logits not bitwise equal (max diff {err:.3e}): the "
+            f"graph runs the kernels of its capture, and a library may pick "
+            f"another algorithm under capture; held within {BF16_TOL:g}")
+    check(err <= BF16_TOL, f"{tag}: graphed logits differ by {err:.3e}")
+    check(torch.equal(got.argmax(-1), want.argmax(-1)),
+          f"{tag}: graphed tokens {got.argmax(-1).tolist()} != eager "
+          f"{want.argmax(-1).tolist()}")
+    return {"bitwise": same, "max_diff": err}
+
+
+class ShadowStep:
+    """Stands in for an engine's graphed paged step: runs the eager step
+    (the function the graph captured) and then the graph on the same
+    operand, holds their logits together (``same_logits``) and returns
+    the graph's.  Both write the same k/v into the same slots (and a COW
+    step copies the same source page again), so the eager call leaves
+    the graph's inputs as they were."""
+
+    def __init__(self, graphed, tag: str):
+        self.graphed, self.tag, self.calls = graphed, tag, []
+
+    def __call__(self, packed):
+        want = _eager(self.graphed)(packed)
+        got = self.graphed(packed)
+        self.calls.append(same_logits(
+            f"{self.tag} step {len(self.calls)}", got, want))
+        return got
+
+
+def check_decode_graphs(dev, zoo, new_tokens: int = 6) -> dict:
+    """The paged decode steps as CUDA graphs against the eager steps on
+    each engine of the zoo, at full width: fresh pools with both steps
+    captured (``init_pools``; each capture must tally one K1 launch a
+    layer), then requests A, B = A's prompt (333 tokens: B maps A's
+    partly filled boundary page) and C in one batch with 5 inactive
+    rows until done, every step through :class:`ShadowStep` (the first
+    step copies on write for A and not for B); then one sampled request
+    (temperature 0.8) through ``generate_paged`` twice graphed and once
+    eager: the same tokens.  Returns each engine's figures: capture
+    seconds, steps compared, bitwise or not, and the sampled request's
+    ms a step graphed and eager."""
+    import torch
+    rng = np.random.default_rng(SEED + 31)
+    stalls = init_pools(zoo)
+    out = {}
+    for eng in zoo["engines"]:
+        name, layers = eng.cfg.name, eng.cfg.num_layers
+        graphs = {"paged_decode": eng._paged_decode,
+                  "paged_decode_cow": eng._paged_decode_cow}
+        for key, width in (("paged_decode", 2), ("paged_decode_cow", 4)):
+            if dev.type != "cuda":
+                break                     # a CPU rehearsal captures nothing
+            held = graphs[key].replay_launches(torch.zeros(
+                (zoo["decode_batch"], width + eng._max_pages),
+                dtype=torch.int32, device=dev))
+            check(held == {"paged_attention": layers},
+                  f"{name} {key}: the capture tallied {held}, not "
+                  f"{layers} K1 launches")
+        shadows = {k: ShadowStep(g, f"{name} {k}") for k, g in graphs.items()}
+        eng._paged_decode = shadows["paged_decode"]
+        eng._paged_decode_cow = shadows["paged_decode_cow"]
+        vocab = eng.cfg.vocab_size
+        a = rng.integers(0, vocab, 333).astype(np.int32)
+        c = rng.integers(0, vocab, 459).astype(np.int32)
+        try:
+            seqs = [eng.prefill_into_pages(p, max_new_tokens=new_tokens)
+                    for p in (a, a, c)]
+            cow0 = eng.cow_count
+            eng.decode_step_batch(seqs)
+            check(eng.cow_count - cow0 == 1, f"{name}: the first step made "
+                  f"{eng.cow_count - cow0} copies on write, not 1")
+            while not all(s.done for s in seqs):
+                eng.decode_step_batch([s for s in seqs if not s.done])
+        finally:
+            eng._paged_decode = graphs["paged_decode"]
+            eng._paged_decode_cow = graphs["paged_decode_cow"]
+        for s in seqs:
+            eng.pool.release(s)
+        calls = {k: sh.calls for k, sh in shadows.items()}
+        check(len(calls["paged_decode_cow"]) == 1
+              and len(calls["paged_decode"]) == new_tokens - 2,
+              f"{name}: {len(calls['paged_decode_cow'])} COW and "
+              f"{len(calls['paged_decode'])} plain steps compared")
+        prompt = rng.integers(0, vocab, 200).astype(np.int32)
+
+        def sampled():
+            r = eng.generate_paged(prompt, max_new_tokens=16,
+                                   seed=SEED + 7, temperature=0.8)
+            return (r["tokens"][len(prompt):].tolist(),
+                    r["decode_s"] * 1e3 / 15)
+        runs = [sampled(), sampled()]
+        eng._paged_decode = _eager(graphs["paged_decode"])
+        eng._paged_decode_cow = _eager(graphs["paged_decode_cow"])
+        try:
+            runs.append(sampled())
+        finally:
+            eng._paged_decode = graphs["paged_decode"]
+            eng._paged_decode_cow = graphs["paged_decode_cow"]
+        toks = [r[0] for r in runs]
+        check(toks[0] == toks[1] == toks[2], f"{name}: a sampled request "
+              f"gave {toks} (graphed, graphed again, eager)")
+        check(eng.pool.pages_in_use == 0,
+              f"{name}: {eng.pool.pages_in_use} pages held")
+        out[name] = {
+            "capture_s": stalls[name],
+            "steps_compared": {k: len(v) for k, v in calls.items()},
+            "bitwise": all(c["bitwise"] for v in calls.values() for c in v),
+            "max_diff": max(c["max_diff"] for v in calls.values() for c in v),
+            "sampled_tokens": toks[0],
+            "sampled_ms_per_step": {"graph": [runs[0][1], runs[1][1]],
+                                    "eager": runs[2][1]}}
+        log(f"decode graphs, {name}: {json.dumps(out[name])}")
+    return out
+
+
+def _host_timed(fn, host_us: list):
+    """``fn`` that appends the host microseconds of each call to
+    ``host_us`` (a graph replay or an eager step returns once its work is
+    queued)."""
+    def timed(*args):
+        t = time.perf_counter()
+        out = fn(*args)
+        host_us.append((time.perf_counter() - t) * 1e6)
+        return out
+    return timed
+
+
+def serve(dev, zoo, prompts, *, new_tokens=32, profile_step=None,
+          eager=False):
     """The direct path: each prompt through ``MuxServer.probe`` ->
     ``prefill_into_pages`` in the selected engine, then each engine's
     ``decode_step_batch`` loop until every request has ``new_tokens``.
     ``profile_step`` (an index) runs that decode step of each engine
-    under ``torch.profiler``.  Returns the run's statistics."""
+    under ``torch.profiler``.  ``eager`` runs each engine's paged steps
+    as the functions its graphs captured, called directly (the port's
+    step before it was graphed, kept here to measure against).  Returns
+    the run's statistics, with each request's tokens in prompt order and
+    each engine's step times (host clock to the sampled ids) and host
+    microseconds a step call."""
     import torch
     from repro_torch.kernels import ops
 
     engines, server = zoo["engines"], zoo["server"]
-    init_pools(zoo)
+    captures = init_pools(zoo)
     ops.reset_launches()
     seqs = [[] for _ in engines]
+    order = []
     prefill_ms = []
     for prompt in prompts:
         t = time.perf_counter()
@@ -1484,49 +1670,19 @@ def serve(dev, zoo, prompts, *, new_tokens=32, profile_step=None):
             torch.cuda.synchronize()
         prefill_ms.append((time.perf_counter() - t) * 1e3)
         seqs[m].append(seq)
+        order.append(seq)
     per_engine = []
     for eng, running in zip(engines, seqs):
-        before = ops.launches["paged_attention"]
-        t = time.perf_counter()
-        steps = 0
-        active = list(running)
-        prof, prof_s, prof_tokens = None, 0.0, 0
-        step_ms = []                      # unprofiled steps, host clock
-        while active:
-            tp = time.perf_counter()
-            if steps == profile_step:     # kept out of the decode rate
-                prof = profile_decode_step(eng, active)
-                prof_s, prof_tokens = time.perf_counter() - tp, len(active)
-            else:
-                eng.decode_step_batch(active)   # syncs: ids reach the host
-                step_ms.append((time.perf_counter() - tp) * 1e3)
-            steps += 1
-            active = [s for s in active if not s.done]
-        if prof is not None:
-            # the profiler slows the host; idle share is taken against
-            # the median unprofiled step of the same batch
-            prof["unprofiled_step_ms"] = float(np.median(step_ms))
-            prof["idle_share"] = 1.0 - (prof["device_busy_ms"]
-                                        / prof["unprofiled_step_ms"])
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
-        dt = time.perf_counter() - t - prof_s
-        tokens = sum(len(s.tokens) - 1 for s in running) - prof_tokens
-        padded = sum(eng.pool.pages_for(s.prompt_len) * eng.pool.page_size
-                     for s in running)
-        per_engine.append({
-            "model": eng.cfg.name, "requests": len(running),
-            "decode_steps": steps, "decode_tokens": tokens,
-            "decode_s": dt,
-            "decode_tokens_per_s": tokens / dt if dt > 0 else 0.0,
-            "paged_attention_launches":
-                ops.launches["paged_attention"] - before,
-            "cow": eng.cow_count,
-            "prompt_tokens_padded": padded,
-            "prefill_tokens_computed": eng.prefill_tokens_computed,
-            "logit_cache_hits": eng.logit_cache_hits,
-            "whole_prompt_prefills": eng.whole_prompt_prefills,
-            "profile": prof})
+        graphs = eng._paged_decode, eng._paged_decode_cow
+        host = []
+        eng._paged_decode, eng._paged_decode_cow = (
+            _host_timed(_eager(g) if eager else g, host) for g in graphs)
+        try:
+            per_engine.append(_decode_all(dev, eng, running, profile_step))
+        finally:
+            eng._paged_decode, eng._paged_decode_cow = graphs
+        per_engine[-1]["host_us_per_step"] = float(np.median(host))
+        per_engine[-1]["capture_s"] = captures.get(eng.cfg.name)
         for s in running:
             check(len(s.tokens) == new_tokens,
                   f"{eng.cfg.name}: a request made {len(s.tokens)} tokens")
@@ -1535,8 +1691,58 @@ def serve(dev, zoo, prompts, *, new_tokens=32, profile_step=None):
         per_engine[-1]["pages_in_use_after"] = eng.pool.pages_in_use
     launches = dict(ops.launches)
     return {"prefill_ms": prefill_ms, "engines": per_engine,
-            "launches": launches,
+            "launches": launches, "eager": eager,
+            "tokens": [list(s.tokens) for s in order],
             "split": {e["model"]: e["requests"] for e in per_engine}}
+
+
+def _decode_all(dev, eng, running, profile_step) -> dict:
+    """``decode_step_batch`` on ``running`` until every request is done;
+    the statistics of the loop."""
+    import torch
+    from repro_torch.kernels import ops
+    before = ops.launches["paged_attention"]
+    t = time.perf_counter()
+    steps = 0
+    active = list(running)
+    prof, prof_s, prof_tokens = None, 0.0, 0
+    step_ms = []                      # unprofiled steps, host clock
+    while active:
+        tp = time.perf_counter()
+        if steps == profile_step:     # kept out of the decode rate
+            prof = profile_decode_step(eng, active)
+            prof_s, prof_tokens = time.perf_counter() - tp, len(active)
+        else:
+            eng.decode_step_batch(active)   # syncs: ids reach the host
+            step_ms.append((time.perf_counter() - tp) * 1e3)
+        steps += 1
+        active = [s for s in active if not s.done]
+    if prof is not None:
+        # the profiler slows the host; idle share is taken against
+        # the median unprofiled step of the same batch
+        prof["unprofiled_step_ms"] = float(np.median(step_ms))
+        prof["idle_share"] = 1.0 - (prof["device_busy_ms"]
+                                    / prof["unprofiled_step_ms"])
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t - prof_s
+    tokens = sum(len(s.tokens) - 1 for s in running) - prof_tokens
+    padded = sum(eng.pool.pages_for(s.prompt_len) * eng.pool.page_size
+                 for s in running)
+    return {
+        "model": eng.cfg.name, "requests": len(running),
+        "decode_steps": steps, "decode_tokens": tokens,
+        "decode_s": dt,
+        "decode_tokens_per_s": tokens / dt if dt > 0 else 0.0,
+        "median_step_ms": float(np.median(step_ms)),
+        "paged_attention_launches":
+            ops.launches["paged_attention"] - before,
+        "cow": eng.cow_count,
+        "prompt_tokens_padded": padded,
+        "prefill_tokens_computed": eng.prefill_tokens_computed,
+        "logit_cache_hits": eng.logit_cache_hits,
+        "whole_prompt_prefills": eng.whole_prompt_prefills,
+        "profile": prof}
 
 
 def serve_scheduler(dev, zoo, prompts, *, new_tokens=32, rate=4.0,
@@ -1712,12 +1918,15 @@ def serve_ring(dev, arch, *, prompt_len, new_tokens, batch=2, step_times=0,
     """Phase 6, the launcher's path: ``launch.serve.build_engine`` (the
     published config, random bf16 weights from ``SEED``) ->
     ``Engine.generate`` on ``batch`` random prompts of ``prompt_len``
-    tokens for ``new_tokens`` greedy tokens, twice (the first run warms
-    up); the launch counts and the ``tf.prefill`` calls are read over
-    these two runs.  Then ``step_times`` ring decode steps after one
-    more prefill, each timed alone to a synchronise (host clock), for
-    the median step; with ``profile``, one prefill and one decode step
-    under torch.profiler.  Returns the numbers and launch counts."""
+    tokens for ``new_tokens`` greedy tokens, twice (the first call
+    allocates the engine's ring caches and captures their decode step);
+    the launch counts and the ``tf.prefill`` calls are read over these
+    two runs.  Then once more with the ring's step run eagerly (the
+    function its graph captured): the same tokens.  Then ``step_times``
+    ring decode steps from one prefill, eager and graphed (:func:`
+    ring_steps`).  With ``profile``, last, one prefill and one graphed
+    and one eager decode step under torch.profiler.  Returns the numbers
+    and launch counts."""
     import torch
     from torch.profiler import ProfilerActivity, profile as tprofile
 
@@ -1748,58 +1957,66 @@ def serve_ring(dev, arch, *, prompt_len, new_tokens, batch=2, step_times=0,
         prefills[0] += 1
         return real_prefill(*args, **kw)
 
-    def prefill():
-        return tf.prefill(eng.params, eng.cfg, prompts.to(dev),
-                          cache_len=eng.scfg.max_len)
-
     tf.prefill = counted        # Engine.generate calls it through the module
     try:
         ops.reset_launches()
         runs = [eng.generate(prompts, max_new_tokens=new_tokens)
                 for _ in range(2)]
         launches, n_prefills = dict(ops.launches), prefills[0]
-        step_ms = []
-        if step_times:
-            logits, caches = prefill()
-            for i in range(step_times):
-                tok = logits[:, 0].argmax(-1, keepdim=True)
-                sync()
-                t = time.perf_counter()
-                logits, caches = tf.decode_step(eng.params, eng.cfg, tok,
-                                                caches, prompt_len + i)
-                sync()
-                step_ms.append((time.perf_counter() - t) * 1e3)
-            if on_logits is not None:
-                on_logits(logits)
-        prof = None
-        if profile:
-            acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-            with tprofile(activities=acts) as p_prefill:
-                logits, caches = prefill()
-                sync()
-            tok = logits[:, 0].argmax(-1, keepdim=True)
-            with tprofile(activities=acts) as p_step:
-                tf.decode_step(eng.params, eng.cfg, tok, caches, prompt_len)
-                sync()
-            rows_p, rows_s = _device_rows(p_prefill), _device_rows(p_step)
-            busy_p = sum(r[0] for r in rows_p)
-            busy_s = sum(r[0] for r in rows_s)
-            k4 = sum(r[0] for r in rows_p if "selective_scan_kernel" in r[2])
-            prefill_ms = runs[-1]["prefill_s"] * 1e3
-            prof = {"prefill_device_busy_ms": busy_p,
-                    "prefill_selective_scan_ms": k4,
-                    "prefill_selective_scan_share": k4 / busy_p,
-                    "prefill_idle_share": 1.0 - busy_p / prefill_ms,
-                    "step_device_busy_ms": busy_s,
-                    "top_prefill": [{"ms": ms, "calls": n, "name": k}
-                                    for ms, n, k in rows_p[:6]],
-                    "top_step": [{"ms": ms, "calls": n, "name": k}
-                                 for ms, n, k in rows_s[:6]]}
-            if step_ms:
-                prof["step_idle_share"] = 1.0 - busy_s / float(
-                    np.median(step_ms))
     finally:
         tf.prefill = real_prefill
+    ring = eng._rings[batch]
+    graphed = ring.decode
+    ring.decode = _eager(graphed)
+    try:
+        eager_run = eng.generate(prompts, max_new_tokens=new_tokens)
+    finally:
+        ring.decode = graphed
+    check(all(torch.equal(r["tokens"], eager_run["tokens"]) for r in runs),
+          f"{arch}: generate's tokens with the graphed ring step differ "
+          f"from the eager step's")
+    steps = ring_steps(dev, eng, prompts, step_times) if step_times else None
+    if steps is not None and on_logits is not None:
+        on_logits(steps["last_logits"])
+    prof = None
+    if profile:
+        acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+        with tprofile(activities=acts) as p_prefill:
+            logits, _ = tf.prefill(eng.params, eng.cfg, prompts.to(dev),
+                                   caches=ring.caches)
+            sync()
+        tok = logits[:, 0].argmax(-1, keepdim=True).to(torch.int32)
+        pos = torch.full((1,), prompt_len, dtype=torch.long, device=dev)
+        rows_s = {}
+        for name, step in (("graph", graphed), ("eager", _eager(graphed))):
+            step(tok, pos)                # warm, outside the window
+            sync()
+            with tprofile(activities=acts) as p_step:
+                step(tok, pos)
+                sync()
+            rows_s[name] = _device_rows(p_step)
+        rows_p = _device_rows(p_prefill)
+        busy_p = sum(r[0] for r in rows_p)
+        busy_s = {k: sum(r[0] for r in v) for k, v in rows_s.items()}
+        k4 = sum(r[0] for r in rows_p if "selective_scan_kernel" in r[2])
+        prefill_ms = runs[-1]["prefill_s"] * 1e3
+        prof = {"prefill_device_busy_ms": busy_p,
+                "prefill_selective_scan_ms": k4,
+                "prefill_selective_scan_share": k4 / busy_p,
+                "prefill_idle_share": 1.0 - busy_p / prefill_ms,
+                "step_device_busy_ms": busy_s["graph"],
+                "eager_step_device_busy_ms": busy_s["eager"],
+                "step_launches": sum(r[1] for r in rows_s["graph"]),
+                "eager_step_launches": sum(r[1] for r in rows_s["eager"]),
+                "top_prefill": [{"ms": ms, "calls": n, "name": k}
+                                for ms, n, k in rows_p[:6]],
+                "top_step": [{"ms": ms, "calls": n, "name": k}
+                             for ms, n, k in rows_s["graph"][:6]]}
+        if steps is not None:
+            for name in ("graph", "eager"):
+                key = "step_idle_share" if name == "graph" else \
+                    "eager_step_idle_share"
+                prof[key] = 1.0 - busy_s[name] / steps[name]["median_ms"]
     out = {"model": arch, "layers": eng.cfg.num_layers, "params": n_params,
            "batch": batch, "prompt_len": prompt_len, "new_tokens": new_tokens,
            "tokens_shapes": [tuple(r["tokens"].shape) for r in runs],
@@ -1809,10 +2026,65 @@ def serve_ring(dev, arch, *, prompt_len, new_tokens, batch=2, step_times=0,
                r["tokens"] < eng.cfg.vocab_size)).all()) for r in runs),
            "prefill_ms": [r["prefill_s"] * 1e3 for r in runs],
            "decode_tokens_per_s": [r["tokens_per_s"] for r in runs],
-           "median_decode_step_ms": (float(np.median(step_ms)) if step_ms
-                                     else None),
+           "eager_decode_tokens_per_s": eager_run["tokens_per_s"],
+           "capture_s": eng.capture_s.get(f"ring_decode_b{batch}"),
+           "median_decode_step_ms": (steps["graph"]["median_ms"]
+                                     if steps else None),
+           "steps": ({k: v for k, v in steps.items() if k != "last_logits"}
+                     if steps else None),
            "prefills": n_prefills, "launches": launches, "profile": prof}
-    del eng
+    del eng, ring, graphed
+    return out
+
+
+def ring_steps(dev, eng, prompts, n: int) -> dict:
+    """``n`` ring decode steps after one prefill into the engine's ring
+    caches, twice from the same state: the caches after the prefill are
+    kept aside and put back before each run, so the eager run (the
+    function the graph captured, called directly) and the graphed run
+    start equal.  Each step is timed alone from a synchronise to one
+    (host clock, ms), with the host microseconds of the call itself;
+    each run feeds its own greedy tokens.  The two runs' logits are held
+    together step by step (``same_logits``).  Returns both runs' median
+    ms and host us a step, and the comparison."""
+    import torch
+    from repro_torch.models import transformer as tf
+    ring = eng._rings[prompts.shape[0]]
+    p = prompts.shape[1]
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    logits, _ = tf.prefill(eng.params, eng.cfg, prompts.to(dev),
+                           caches=ring.caches)
+    first = logits[:, 0]
+    kept = {k: {n_: t.clone() for n_, t in v.items()}
+            for k, v in ring.caches.items()}
+    positions = torch.arange(p, p + n, dtype=torch.long, device=dev)
+    out = {}
+    for name, step in (("eager", _eager(ring.decode)), ("graph", ring.decode)):
+        for k, v in kept.items():
+            for n_, t in v.items():
+                ring.caches[k][n_].copy_(t)
+        tok = first.argmax(-1, keepdim=True).to(torch.int32)
+        ms, host, seen = [], [], []
+        for i in range(n):
+            sync()
+            t = time.perf_counter()
+            lg = step(tok, positions[i:i + 1])
+            host.append((time.perf_counter() - t) * 1e6)
+            tok = lg.argmax(-1, keepdim=True).to(torch.int32)
+            sync()
+            ms.append((time.perf_counter() - t) * 1e3)
+            seen.append(lg)
+        out[name] = {"median_ms": float(np.median(ms)),
+                     "host_us": float(np.median(host)), "logits": seen}
+    cmp = [same_logits(f"{eng.cfg.name} ring step {i}", g, e)
+           for i, (g, e) in enumerate(zip(out["graph"].pop("logits"),
+                                          out["eager"].pop("logits")))]
+    out["bitwise"] = all(c["bitwise"] for c in cmp)
+    out["max_diff"] = max(c["max_diff"] for c in cmp)
+    out["last_logits"] = lg
+    log(f"{eng.cfg.name} ring steps (B={prompts.shape[0]}, {n} steps from "
+        f"one prefill): eager {out['eager']}, graph {out['graph']}, "
+        f"bitwise {out['bitwise']}, max diff {out['max_diff']:.3e}")
     return out
 
 
@@ -1858,6 +2130,22 @@ def _watch(sample_rows, on_logits):
         on_logits(logits)
         return sample_rows(logits, *args, **kw)
     return wrapped
+
+
+def live_cuda_tensors(top: int = 6) -> list:
+    """(GB, shape, dtype) of the largest CUDA tensors the garbage
+    collector can reach, for a report of what still holds device
+    memory."""
+    import torch
+    found = []
+    for obj in gc.get_objects():
+        try:
+            if torch.is_tensor(obj) and obj.is_cuda:
+                found.append((obj.numel() * obj.element_size() / 1e9,
+                              tuple(obj.shape), str(obj.dtype)))
+        except ReferenceError:
+            continue
+    return sorted(found, reverse=True)[:top]
 
 
 def check_wgmma_prefills(tag, launches) -> None:
@@ -1946,6 +2234,64 @@ def check_scheduler(run, prompts, cfgs, new_tokens) -> None:
           "different times")
 
 
+def serve_direct(dev, zoo, prompts, cfgs, *, new_tokens=32):
+    """Phase 3 with the engines' graphed steps, then with the eager ones
+    (``serve(eager=True)``): each run passes ``check_served`` and every
+    request's tokens are the same in both.  Returns the graphed run's
+    statistics and each model's [graphed, eager] median step ms, host
+    microseconds a step call and decode tokens/s."""
+    runs = {}
+    for eager in (False, True):
+        stats = serve(dev, zoo, prompts, new_tokens=new_tokens, eager=eager)
+        log(f"direct path ({'eager' if eager else 'graphed'} steps): mux "
+            f"split {stats['split']}, launches {stats['launches']}")
+        for e in stats["engines"]:
+            log(f"  {json.dumps(e)}")
+        check_served(stats, cfgs)
+        runs[eager] = stats
+    check(runs[False]["tokens"] == runs[True]["tokens"],
+          "direct path: the graphed steps' tokens differ from the eager "
+          "steps'")
+    return runs[False], {
+        e["model"]: {k: [e[k], ee[k]] for k in (
+            "median_step_ms", "host_us_per_step", "decode_tokens_per_s")}
+        for e, ee in zip(runs[False]["engines"], runs[True]["engines"])}
+
+
+# phase 6: (arch, prompt tokens, new tokens, mamba)
+RING_RUNS = (("falcon-mamba-7b", 1024, 32, True), ("olmo-1b", 256, 8, False))
+
+
+def decode_graph_checks(dev) -> dict:
+    """The engine's decode graphs alone (README's command): the zoo of
+    phases 3-5, ``check_decode_graphs``, phase 3 graphed and eager
+    (``serve_direct``), then phase 6's ring paths, each with its eager
+    ``generate`` and its eager-against-graphed steps.  Prints and returns
+    the ``decode_graphs`` figures."""
+    import torch
+    from repro_torch.configs import get_config
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfgs = [get_config("olmo-1b"), get_config("codeqwen1.5-7b")]
+    prompts = make_prompts(np.random.default_rng(SEED), 50_304)
+    zoo = build_zoo(dev, cfgs, [512, 256], prompts, dtype=torch.bfloat16)
+    out = {"paged": check_decode_graphs(dev, zoo)}
+    _, out["direct"] = serve_direct(dev, zoo, prompts, cfgs)
+    del zoo
+    gc.collect()
+    torch.cuda.empty_cache()
+    for arch, plen, new, scan in RING_RUNS:
+        r = serve_ring(dev, arch, prompt_len=plen, new_tokens=new,
+                       step_times=16)
+        check_ring(r, scan=scan)
+        out[arch] = {k: r[k] for k in ("decode_tokens_per_s",
+                                       "eager_decode_tokens_per_s",
+                                       "capture_s", "steps")}
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(json.dumps({"decode_graphs": out}), flush=True)
+    return out
+
+
 # ---------------------------------------------------------------------------
 
 def main(argv) -> int:
@@ -2020,19 +2366,11 @@ def main(argv) -> int:
     log(f"zoo: setup {zoo['setup_s']:.1f} s, threshold "
         f"{zoo['threshold']:.6f}")
     probe["capture_race"] = check_capture_race(dev, zoo)
+    graphs = {"paged": check_decode_graphs(dev, zoo)}
 
     # phase 3: the direct path (probe -> prefill_into_pages -> decode)
-    stats = serve(dev, zoo, prompts, new_tokens=new_tokens,
-                  profile_step=2 if args.profile else None)
-    log(f"direct path: mux split {stats['split']}, launches "
-        f"{stats['launches']}")
-    for e in stats["engines"]:
-        log(f"  {json.dumps(e)}")
-    check_served(stats, cfgs)
-    if args.profile:
-        rng = np.random.default_rng(SEED + 2)
-        for prof in [profile_prefill(e, rng, 1024) for e in zoo["engines"]]:
-            log(f"  prefill profile {json.dumps(prof)}")
+    stats, graphs["direct"] = serve_direct(dev, zoo, prompts, cfgs,
+                                           new_tokens=new_tokens)
 
     # phase 4: the scheduler path, the main path of this run; phase 5:
     # the same without the probe's prewarm, so admissions prefill on
@@ -2053,22 +2391,32 @@ def main(argv) -> int:
     run = runs[True]
     check(finite["seen"] > 0 and finite["bad"] == 0,
           f"{finite['bad']} of {finite['seen']} logits tensors not finite")
+    if args.profile:
+        # after the served phases: a profiler window slows later launches
+        rng = np.random.default_rng(SEED + 2)
+        for prof in [profile_prefill(e, rng, 1024) for e in zoo["engines"]]:
+            log(f"  prefill profile {json.dumps(prof)}")
+        prof_run = serve(dev, zoo, prompts, new_tokens=new_tokens,
+                         profile_step=2)
+        for e in prof_run["engines"]:
+            log(f"  graphed decode step profile {e['model']} "
+                f"({e['requests']} rows): {json.dumps(e['profile'])}")
 
     # phase 6: the ring-cache path of the launcher, after freeing the zoo
     del zoo
     gc.collect()
     torch.cuda.empty_cache()
     held = torch.cuda.memory_allocated()
-    log(f"zoo freed: {held / 1e9:.3f} GB allocated")
+    log(f"zoo freed: {held / 1e9:.3f} GB allocated; largest live CUDA "
+        f"tensors {live_cuda_tensors()}")
     check(held < 1e9, f"the zoo of phases 3-5 still holds {held / 1e9:.2f} "
           f"GB of device memory")
     finite.update(bad=0, seen=0)
     ring = {}
-    for arch, plen, new, scan in (("falcon-mamba-7b", 1024, 32, True),
-                                  ("olmo-1b", 256, 8, False)):
+    for arch, plen, new, scan in RING_RUNS:
         r = serve_ring(dev, arch, prompt_len=plen, new_tokens=new,
-                       step_times=16 if scan else 0,
-                       profile=args.profile and scan, on_logits=on_logits)
+                       step_times=16, profile=args.profile,
+                       on_logits=on_logits)
         log(f"phase 6, {arch} ring path: {json.dumps(r)}")
         check_ring(r, scan=scan)
         ring[arch] = r
@@ -2141,9 +2489,11 @@ def main(argv) -> int:
                            ("scheduler_no_prewarm", runs[False]))}}),
         flush=True)
     print(json.dumps({"ring": {arch: {k: r[k] for k in (
-        "prefill_ms", "decode_tokens_per_s", "median_decode_step_ms",
-        "prefills", "launches", "profile")} for arch, r in ring.items()}}),
+        "prefill_ms", "decode_tokens_per_s", "eager_decode_tokens_per_s",
+        "median_decode_step_ms", "capture_s", "steps", "prefills",
+        "launches", "profile")} for arch, r in ring.items()}}),
         flush=True)
+    print(json.dumps({"decode_graphs": graphs}), flush=True)
     print(json.dumps({"probe": {"mux_score_ptxas": k2_res, "mux_score": k2,
                                 **probe}}), flush=True)
     return finish()

@@ -18,7 +18,8 @@ and indexes group g as a view.  Caches are updated in place (see
 
 Entry points:
   * ``forward``        (train / prefill / decode)
-  * ``prefill``        (a prompt, writing fresh ring / SSM caches)
+  * ``prefill``        (a prompt, writing fresh or reset ring / SSM
+    caches)
   * ``prefill_paged``  (a prompt, or a shared-prefix tail, into pages)
   * ``decode_step``    (one token: ring caches at a shared scalar
     position, or — via ``block_tables`` — the paged pool at per-row
@@ -354,16 +355,36 @@ def _group(tree: Params, g: int) -> Params:
             for k, v in tree.items()}
 
 
+def reset_caches(caches: Params) -> Params:
+    """Empty ring / mamba caches in place, as ``init_caches`` makes
+    them: every ring slot's position -1 (its k/v stay, masked out) and
+    every mamba conv tail and SSM state 0.  Returns ``caches``."""
+    for layer in caches.values():
+        if "pos" in layer:
+            layer["pos"].fill_(-1)
+        else:
+            layer["conv"].zero_()
+            layer["h"].zero_()
+    return caches
+
+
 def prefill(params: Params, cfg: ModelConfig, tokens, *,
-            cache_len: Optional[int] = None):
+            cache_len: Optional[int] = None, caches: Optional[Params] = None):
     """Process a prompt (B, S) into fresh ring / mamba caches of
     capacity ``cache_len`` (S when None) on the params' device.  The
     caches are bf16 whatever the compute dtype, as the JAX package's
-    ``prefill`` makes them (a mamba state ``h`` stays fp32).
+    ``prefill`` makes them (a mamba state ``h`` stays fp32).  Given
+    ``caches`` (``init_caches`` at this batch, reused across prompts, as
+    the JAX engine reuses its donated buffers) the prompt writes into
+    them instead, after ``reset_caches``: the scan and the conv start
+    from a zero state and no slot of an earlier prompt stays visible.
     Returns (next-token logits (B, 1, V), caches)."""
     b, s = tokens.shape[:2]
-    caches = init_caches(cfg, b, cache_len or s, torch.bfloat16,
-                         device=params["embed"].device)
+    if caches is None:
+        caches = init_caches(cfg, b, cache_len or s, torch.bfloat16,
+                             device=params["embed"].device)
+    else:
+        reset_caches(caches)
     h, caches = forward(params, cfg, tokens, mode="prefill", caches=caches)
     return unembed(params, cfg, h[:, -1:]), caches
 
@@ -395,7 +416,9 @@ def decode_step(params: Params, cfg: ModelConfig, token, caches, pos, *,
                 block_tables=None):
     """One decode step.  token (B, 1).  Without ``block_tables`` the
     caches are ring / mamba caches and ``pos`` is the shared position of
-    the token (an int or a 1-element tensor).  With ``block_tables``
+    the token (an int, or a 1-element tensor on the params' device,
+    which a captured step takes as an input and reads nothing of on the
+    host).  With ``block_tables``
     (B, M) the caches are the paged pool and ``pos`` (B,) holds per-row
     positions (rows may sit at different positions); the combined
     block-table + lengths operand is built once here and shared by every

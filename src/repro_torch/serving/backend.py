@@ -225,12 +225,17 @@ def _engine_warmup(engine, prompt_lens: Sequence[int],
     at each padded prompt length (plus an identical twin so the
     shared-prefix tail path and the copy-on-write decode step run when
     sharing is on), the decode step, and — chunked mode — the fixed
-    chunk shape.  PyTorch compiles nothing ahead, but the first call of
-    each shape pays the kernel builds, the library handles and the
-    allocator's growth, which warmup keeps out of the first request.
-    Warmup pages always hand back; the logit cache is bypassed and
-    cleared so synthetic prompts neither skip the compiles nor leave
+    chunk shape.  On a CUDA device it first captures both paged decode
+    steps (plain and copy-on-write, ``Engine.capture_decode_steps``:
+    their inputs touch only the scratch page), so the decode steps below
+    and every served one are replays, as the reference compiles its
+    jitted steps here.  PyTorch compiles nothing else ahead, but the
+    first call of each shape pays the kernel builds, the library handles
+    and the allocator's growth, which warmup keeps out of the first
+    request.  Warmup pages always hand back; the logit cache is bypassed
+    and cleared so synthetic prompts neither skip the compiles nor leave
     entries behind."""
+    engine.capture_decode_steps()
     cache_cap = engine._logit_cache_cap
     engine._logit_cache_cap = 0
     try:

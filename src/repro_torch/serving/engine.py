@@ -15,11 +15,22 @@ step that would write into a shared page copies it first
 
 Differences from the JAX engine:
 
-* PyTorch runs eagerly, so there is no jit and no donation: the pool
-  tensors are preallocated once and updated in place.  A failure in
-  the middle of a step can leave the pool partly written, so any
-  device-side exception marks the caches poisoned (``caches_poisoned``),
-  as a failed donating call does in the JAX engine.
+* Where the JAX engine jits its decode steps, the port replays CUDA
+  graphs (``repro_torch.graphs.CudaGraphed``): on a CUDA device each
+  ring decode step of ``generate`` and each paged ``decode_step_batch``
+  is one replay of a captured step, the plain paged step or the one
+  with the fused copy-on-write (the reference's ``paged_decode_fn`` /
+  ``paged_decode_cow_fn``).  A capture or replay that fails raises;
+  nothing runs the step eagerly instead.  On the CPU the same step
+  functions run directly on the same buffers.  Prefill stays eager
+  (its shapes follow each prompt).
+* There is no donation: the pool and the ring / Mamba caches are
+  allocated once (the ring caches once per batch size, on first use)
+  and updated in place, at the fixed addresses the graphs hold.  A
+  failure in the middle of a step can leave the pool partly written,
+  so any device-side exception marks the caches poisoned
+  (``caches_poisoned``), as a failed donating call does in the JAX
+  engine.
 * Temperature > 0 draws each row's token from a ``torch.Generator``
   seeded from (the request's seed, the token's position): a row's token
   does not depend on its batch mates, as in the JAX engine, but the
@@ -37,13 +48,14 @@ import dataclasses
 import hashlib
 import threading
 import time
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.graphs import CudaGraphed
 from repro_torch.models import transformer as tf
 from repro_torch.models.attention import SCRATCH_PAGE
 from repro_torch.serving.kv_cache import OutOfPages, PagePool, PagedSequence
@@ -55,6 +67,15 @@ class ServeConfig:
     max_len: int = 256                  # cache capacity per request
     temperature: float = 0.0            # 0 = greedy
     seed: int = 0
+
+
+@dataclasses.dataclass
+class _Ring:
+    """Engine-owned ring / Mamba caches for one batch size, and the
+    decode step over them: (token (B, 1) int32, pos (1,) int64) ->
+    logits (B, V)."""
+    caches: Dict[str, Any]
+    decode: Callable
 
 
 def _row_seed(seed: int, position: int) -> int:
@@ -85,9 +106,15 @@ class Engine:
         # MuxServer.probe prewarm on the caller thread must never overlap
         # on one engine.  RLock: prefill_into_pages nests prefill_chunk.
         self._device_lock = threading.RLock()
+        # ring caches and their decode step, by batch size (generate)
+        self._rings: Dict[int, _Ring] = {}
+        # wall seconds of each graph capture, by step name
+        self.capture_s: Dict[str, float] = {}
         # paged state (populated by init_paged)
         self.pool: Optional[PagePool] = None
         self._paged_caches = None
+        self._paged_decode: Optional[Callable] = None
+        self._paged_decode_cow: Optional[Callable] = None
         self._max_pages = 0
         self._decode_batch = 0
         self._caches_poisoned = False
@@ -157,9 +184,43 @@ class Engine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _compiled(self, fn: Callable, name: str) -> Callable:
+        """A decode step in the form the device runs it: replayed from a
+        CUDA graph on the card, the function itself on the CPU."""
+        return CudaGraphed(fn, name) if self.device.type == "cuda" else fn
+
+    def _ring(self, b: int) -> _Ring:
+        """The ring / Mamba caches of batch ``b`` (capacity max_len,
+        bf16 as ``tf.prefill`` makes them) and their decode step,
+        allocated on first use.  The step is captured here, while the
+        caches hold nothing yet: its warm-up advances a Mamba state,
+        which every prefill resets (``tf.reset_caches``) before use."""
+        ring = self._rings.get(b)
+        if ring is None:
+            caches = tf.init_caches(self.cfg, b, self.scfg.max_len,
+                                    torch.bfloat16, device=self.device)
+
+            def decode(token, pos):
+                logits, _ = tf.decode_step(self.params, self.cfg, token,
+                                           caches, pos)
+                return logits[:, 0]
+
+            name = f"ring_decode_b{b}"
+            ring = _Ring(caches, self._compiled(decode, name))
+            if isinstance(ring.decode, CudaGraphed):
+                self.capture_s[name] = ring.decode.capture(
+                    torch.zeros((b, 1), dtype=torch.int32,
+                                device=self.device),
+                    torch.zeros((1,), dtype=torch.long, device=self.device))
+            self._rings[b] = ring
+        return ring
+
     def generate(self, prompts, *, max_new_tokens: int) -> Dict[str, Any]:
         """Ring-cache generation for a batch at one shared position.
-        prompts: (B, P) int token ids (a tensor or an array).
+        prompts: (B, P) int token ids (a tensor or an array).  The
+        prompt fills the engine's ring caches for batch B (reset first);
+        each decode step replays that batch's captured step (CUDA) or
+        runs it (CPU); sampling stays outside the step.
 
         Returns {tokens (B, P+N) on the engine's device, prefill_s,
         decode_s, tokens_per_s}; the times run to a device synchronise.
@@ -170,20 +231,25 @@ class Engine:
         b, p = prompts.shape[:2]
         self._check_capacity(p, max_new_tokens)
         seeds = [self.scfg.seed + i for i in range(b)]
-        t0 = time.perf_counter()
-        logits, caches = tf.prefill(self.params, self.cfg, prompts,
-                                    cache_len=self.scfg.max_len)
-        tok = self._pick(logits[:, 0], seeds, [p] * b)
-        self._sync()
-        t1 = time.perf_counter()
-        out = [prompts, tok.reshape(b, 1).to(prompts.dtype)]
-        for i in range(max_new_tokens - 1):
-            logits, caches = tf.decode_step(self.params, self.cfg, out[-1],
-                                            caches, p + i)
-            nxt = self._pick(logits[:, 0], seeds, [p + i + 1] * b)
-            out.append(nxt.reshape(b, 1).to(prompts.dtype))
-        self._sync()
-        t2 = time.perf_counter()
+        with self._device_lock:            # one request owns the caches
+            ring = self._ring(b)
+            # the position of each decode step's input token, on the
+            # device before the loop: a step reads nothing from the host
+            positions = torch.arange(p, p + max_new_tokens, dtype=torch.long,
+                                     device=self.device)
+            t0 = time.perf_counter()
+            logits, _ = tf.prefill(self.params, self.cfg, prompts,
+                                   caches=ring.caches)
+            tok = self._pick(logits[:, 0], seeds, [p] * b)
+            self._sync()
+            t1 = time.perf_counter()
+            out = [prompts, tok.reshape(b, 1).to(prompts.dtype)]
+            for i in range(max_new_tokens - 1):
+                logits = ring.decode(tok.reshape(b, 1), positions[i:i + 1])
+                tok = self._pick(logits, seeds, [p + i + 1] * b)
+                out.append(tok.reshape(b, 1).to(prompts.dtype))
+            self._sync()
+            t2 = time.perf_counter()
         return {"tokens": torch.cat(out, dim=1), "prefill_s": t1 - t0,
                 "decode_s": t2 - t1,
                 "tokens_per_s": b * max_new_tokens / max(t2 - t1, 1e-9)}
@@ -219,11 +285,63 @@ class Engine:
         self._prewarm_cap = max(1, min(4, int(logit_cache)))
         self._layer_spans = self._banded_spans()
         self.reclaimed_pages = 0
-        self._paged_caches = None       # free the old pool before the new
+        # free the old pool (and the graphs that hold it) before the new
+        self._paged_decode = self._paged_decode_cow = None
+        self._paged_caches = None
         self._paged_caches = tf.init_caches(
             self.cfg, num_pages=num_pages, page_size=page_size,
             device=self.device)
+        self._paged_decode = self._compiled(self._paged_step(cow=False),
+                                            "paged_decode")
+        self._paged_decode_cow = self._compiled(self._paged_step(cow=True),
+                                                "paged_decode_cow")
         return self.pool
+
+    def _paged_step(self, cow: bool) -> Callable:
+        """The paged decode step over this pool, as one function of one
+        (decode_batch, 2 + max_pages [+ 2]) int32 operand: per row the
+        input token, its position and its block-table row, and with
+        ``cow`` a copy-on-write source and destination page (scratch ->
+        scratch on rows that copy nothing).  The COW form first copies
+        src -> dst across every layer's slabs, as the JAX engine's
+        ``paged_decode_cow_fn`` does.  Returns logits (decode_batch, V).
+        """
+        caches, m = self._paged_caches, self._max_pages
+
+        def step(packed):
+            if cow:
+                src = packed[:, 2 + m].long()
+                dst = packed[:, 3 + m].long()
+                for slabs in caches.values():
+                    for x in slabs.values():
+                        x[:, dst] = x[:, src]
+            logits, _ = tf.decode_step(self.params, self.cfg, packed[:, :1],
+                                       caches, packed[:, 1],
+                                       block_tables=packed[:, 2:2 + m])
+            return logits[:, 0]
+        return step
+
+    def capture_decode_steps(self) -> Dict[str, float]:
+        """Capture both paged decode steps (plain and copy-on-write) at
+        the engine's (decode_batch, max_pages) before traffic, so that
+        no served step pays a capture.  The capture's inputs touch only
+        the scratch page: every row inactive (token 0 at position 0 of a
+        block table of scratch pages), every copy scratch -> scratch.
+        Returns the wall seconds of each capture ({} on the CPU, which
+        captures nothing)."""
+        if self.pool is None:
+            raise RuntimeError("no paged KV pool: call init_paged() first")
+        out = {}
+        with self._device_lock:
+            for name, step, width in (
+                    ("paged_decode", self._paged_decode, 2),
+                    ("paged_decode_cow", self._paged_decode_cow, 4)):
+                if isinstance(step, CudaGraphed):
+                    out[name] = self.capture_s[name] = step.capture(
+                        torch.full((self._decode_batch,
+                                    width + self._max_pages), SCRATCH_PAGE,
+                                   dtype=torch.int32, device=self.device))
+        return out
 
     @property
     def decode_batch(self) -> int:
@@ -620,38 +738,35 @@ class Engine:
                     raise
                 cow.append((i, seq, idx, old, new))
                 pending[old] = pending.get(old, 0) + 1
-        tokens = np.zeros((cap, 1), np.int32)
-        bt = np.full((cap, self._max_pages), SCRATCH_PAGE, np.int32)
-        pos = np.zeros((cap,), np.int32)
+        # one operand per step (see _paged_step): columns token, pos,
+        # the block-table row, and on a COW step src / dst; inactive
+        # rows decode token 0 at position 0 into the scratch page
+        m = self._max_pages
+        packed = np.full((cap, (4 if cow else 2) + m), SCRATCH_PAGE,
+                         np.int32)
+        packed[:, :2] = 0
         seeds = np.zeros((cap,), np.int64)
         temps: List[Optional[float]] = [None] * cap
         for i, seq in enumerate(seqs):
-            tokens[i, 0] = seq.last_token
-            bt[i] = seq.block_table
-            pos[i] = seq.pos
+            packed[i, 0] = seq.last_token
+            packed[i, 1] = seq.pos
+            packed[i, 2:2 + m] = seq.block_table
             seeds[i] = seq.seed
             temps[i] = seq.temperature
         # COWing rows decode against their private copy: the step copies
         # old -> new across every layer's slabs, then the insert lands in
-        # the copy
-        for i, seq, idx, old, new in cow:
-            bt[i, idx] = new
-        dev = self.device
+        # the copy; rows that copy nothing ride scratch -> scratch
+        for r, (i, seq, idx, old, new) in enumerate(cow):
+            packed[i, 2 + idx] = new
+            packed[r, 2 + m:] = (old, new)
+        step = self._paged_decode_cow if cow else self._paged_decode
         try:
-            if cow:
-                src = torch.as_tensor([c[3] for c in cow], device=dev)
-                dst = torch.as_tensor([c[4] for c in cow], device=dev)
-                for slabs in self._paged_caches.values():
-                    for x in slabs.values():
-                        x[:, dst] = x[:, src]
-            logits, _ = tf.decode_step(
-                self.params, self.cfg, torch.as_tensor(tokens, device=dev),
-                self._paged_caches, torch.as_tensor(pos, device=dev),
-                block_tables=torch.as_tensor(bt, device=dev))
+            logits = step(torch.from_numpy(packed).to(self.device))
             # row i's next token sits at position pos[i] + 1; keying the
             # sample by (seq.seed, position) keeps a sampled generation
             # independent of batch composition
-            nxt = self._sample_rows(logits[:, 0], seeds, pos + 1, temps=temps)
+            nxt = self._sample_rows(logits, seeds, packed[:, 1] + 1,
+                                    temps=temps)
         except Exception:
             self._caches_poisoned = True
             self.pool.decref([n for _, _, _, _, n in cow])
