@@ -31,7 +31,8 @@ Phases, each of which must pass:
    32, 16), d = 30 (4-byte loads), M = 72 and N = 40 (lanes loop), d =
    4096 (132 KB of shared memory) and h off 16-byte alignment, and in
    its meta form (the TPU kernel's contract) at the reference sweep
-   shapes, each twice, bitwise; then the probe's and select's CUDA
+   shapes and the image mux's served shapes (B = 1 and 256, M = 64,
+   N = 6, ``normalize=False``), each twice, bitwise; then the probe's and select's CUDA
    graphs against the eager functions they capture at (B, S) = (1, 64),
    (1, 17), (3, 64) (weights and assignments bitwise equal, or weights
    within 1e-6 with the reason logged; K2's launches as its wrapper
@@ -146,7 +147,32 @@ Phases, each of which must pass:
    graphed from the same saved caches, must give the same tokens and
    logits bitwise equal or within 2e-2 (median step ms and host
    microseconds of each).
-7. Last, since a ``torch.profiler`` window slows the host's later
+7. The paper's image mux, the port's ``configs/paper_mux.py`` at full
+   width: the six zoo CNNs (``zoo_xxs`` ... ``zoo_xl``, 32x32x3 images,
+   10 classes) and the 4-conv mux backbone (meta_dim 64), random fp32
+   weights from a seeded generator, costs from ``zoo_costs``, 2048
+   images drawn from ``SEED``.  cuDNN's TF32 switch is on for the phase,
+   so the port's own full-fp32 scope of its convolutions is what holds
+   the card to the CPU.  Checks, in order: every zoo CNN's logits and
+   embeddings and ``serve``'s weights on 16 images, card against CPU
+   (1e-4 / 1e-5); ``MuxServer.serve`` on 8 batches of 256 under argmax
+   (capacity 64) and under a threshold set in the widest gap of the
+   middle half of the cheapest model's weights (capacity 256, at least
+   two models called): outputs finite, ``assign`` = ``select`` on the
+   returned weights, ``flops`` = ``costs[assign]``, each model keeps
+   min(its rows, capacity) and a dropped row is zero, K2's meta form
+   launched once a ``serve`` (its capture tallied one), the graphed
+   batch step against the eager ``_batch_step`` on every batch (bitwise,
+   or within 1e-5 / 1e-4 with the reason logged); ``MuxScheduler``
+   with ``bench_scheduler.py``'s setup (``SchedulerConfig(max_batch_size=8,
+   max_wait_ms=4.0, default_slo_ms=250.0)``, 192 images at Poisson
+   400/s and bursty 200/s, ``warmup`` first) over the thresholded
+   server: every request completes bitwise equal to
+   ``reference_output(x, reference_assignment(x))``, K2 launched once a
+   probe, no graph captured after ``warmup``; K2's meta form at its
+   served shapes (B = 1 and 256, M = 64, N = 6) against
+   ``mux_score_ref`` and timed.  Its wall time is printed.
+8. Last, since a ``torch.profiler`` window slows the host's later
    launches: the whole probe (weights + select) at B=1, S=64, eager
    against graphed: ms a call, host microseconds a call, and device
    busy ms and launches a probe from ``torch.profiler``, whose rows
@@ -154,10 +180,16 @@ Phases, each of which must pass:
    ``--profile`` the profiled sections (one 1024-token prefill per
    engine, a graphed decode step 2 of a rerun of phase 3, and of phase
    6 one prefill, one graphed and one eager ring step) follow the
-   served phases they read from.
+   served phases they read from.  After the probe's profile, always:
+   10 graphed image ``serve`` steps
+   (argmax, B = 256) under ``torch.profiler``: device busy ms and
+   launches a step against the median wall ms of an unprofiled
+   ``serve``, the idle share; K2 must show once a step.
 
 Output: progress lines, then the ``{"kernels": [...]}`` JSON line (the
-launches are phase 4's for K1-K3 and phase 6's falcon-mamba run for K4),
+launches are phase 4's for K1-K3 and phase 6's falcon-mamba run for K4;
+K2's entry also has its meta form's launches on phase 7's image path,
+``meta_launches``, and its times at the served shapes, ``meta_form``),
 a JSON line of K1's ptxas resources and its times by shape, a JSON
 line of K4's ptxas resources and its times by batch, a JSON
 line of K3's tensor-core variant's ptxas resources and its
@@ -172,7 +204,12 @@ graphed and one eager decode step), a ``{"decode_graphs": ...}`` line
 (the paged steps' captures and checks, and phase 3's step ms, host
 microseconds and tokens/s graphed and eager), a
 ``{"probe": ...}`` line (K2's ptxas resources and times, the graphs
-against the eager probe, the probe eager against graphed), the
+against the eager probe, the probe eager against graphed), an
+``{"image_mux": ...}`` line (phase 7's figures: ``serve`` ms a batch
+graphed and eager, images/s, mean_flops, saving factor and called
+fractions per policy, the scheduler's throughput, p50 / p99, queue p99,
+batch fill, saving factor and SLO violations per load, K2's meta form
+at its served shapes, the profiled serve step), the
 card's name and power limit (nvidia-smi), and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the run
 exits non-zero without that last line.  It needs one CUDA card and a
@@ -562,7 +599,8 @@ MUX_HEAD_CASES = ((1, 64, 128, 32, 2, False), (3, 1, 32, 8, 2, True),
                   (2, 9, 64, 72, 40, True),     # M, N > 32: lanes loop
                   (1, 8, 4096, 32, 2, False))   # 132 KB of shared memory
 MUX_META_CASES = ((10, 64, 6, True), (300, 32, 2, True), (7, 128, 16, True),
-                  (1, 32, 2, False))
+                  (1, 32, 2, False),
+                  (1, 64, 6, False), (256, 64, 6, False))  # the image mux
 MUX_SERVED = MUX_HEAD_CASES[0]
 # the probe's graphs against its eager functions, in this order, so a
 # second shape follows a first: (B, S)
@@ -2122,6 +2160,8 @@ def _leaves(tree):
 def _to_device(tree, dev):
     if isinstance(tree, dict):
         return {k: _to_device(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_device(v, dev) for v in tree]
     return tree.to(dev)
 
 
@@ -2294,6 +2334,398 @@ def decode_graph_checks(dev) -> dict:
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# Phase 7: the paper's image mux (CNN zoo, 4-conv probe, K2's meta form)
+# ---------------------------------------------------------------------------
+
+IMAGE_TOL = 1e-4            # zoo logits / embeddings, card vs CPU (fp32)
+IMAGE_W_TOL = 1e-5          # mux weights, card vs CPU and graph vs eager
+SERVE_B = 256               # paper_mux.config().batch_size
+SCHED_LOADS = (("poisson", 400.0), ("bursty", 200.0))   # bench_scheduler
+SCHED_REQUESTS = 192
+
+
+def build_image_mux(dev) -> dict:
+    """The port's ``paper_mux.config()`` at full width: the six zoo CNNs
+    (32x32x3 images, 10 classes) and the 4-conv mux backbone (meta_dim
+    64, proj_dim 32), random fp32 weights from a seeded generator, costs
+    from ``zoo_costs``, and ``eval_samples`` images drawn from ``SEED``
+    (normal, as ``bench_scheduler.py`` draws its requests)."""
+    import torch
+    from repro_torch.configs import paper_mux
+    from repro_torch.core.multiplexer import init_image_backbone, init_mux
+    from repro_torch.models import cnn
+    cfg = paper_mux.config()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 30)
+    zoo = cnn.init_zoo(gen, num_classes=cfg.num_classes, names=cfg.zoo,
+                       device=dev)
+    costs = cfg.costs()
+    mux = init_mux(gen, backbone=init_image_backbone(
+        gen, meta_dim=cfg.meta_dim, device=dev), model_names=list(cfg.zoo),
+        costs=costs, meta_dim=cfg.meta_dim, proj_dim=cfg.proj_dim,
+        device=dev)
+    images = np.random.default_rng(SEED).standard_normal(
+        (cfg.eval_samples, cfg.image_size, cfg.image_size, 3)
+    ).astype(np.float32)
+    return {"cfg": cfg, "zoo": zoo, "mux": mux,
+            "costs": [costs[n] for n in cfg.zoo], "images": images}
+
+
+def image_server(im, dev, *, threshold=None, zoo=None, mux=None):
+    """A ``MuxServer`` over the image zoo (``model_fns``: each CNN's
+    logits) on ``dev``; ``zoo`` / ``mux`` default to the card's params."""
+    from repro_torch.models import cnn
+    from repro_torch.serving.mux_server import MuxServer, MuxServerConfig
+    zoo = im["zoo"] if zoo is None else zoo
+    names = im["cfg"].zoo
+    fns = [lambda xs, n=n: cnn.cnn_forward(
+        zoo[n], xs, convs_per_stage=cnn.ZOO_SPECS[n]["convs_per_stage"])[0]
+        for n in names]
+    return MuxServer(im["mux"] if mux is None else mux, im["costs"],
+                     MuxServerConfig(threshold=threshold), device=dev,
+                     model_fns=fns)
+
+
+def check_image_against_cpu(dev, im) -> float:
+    """Every zoo CNN's logits and embeddings and ``serve``'s weights on 16
+    images, card against CPU (the same params copied), within
+    ``IMAGE_TOL`` / ``IMAGE_W_TOL``; the assignments equal where the top
+    two weights are apart.  Returns the largest logit / embedding
+    difference."""
+    import torch
+    from repro_torch.models import cnn
+    cpu = torch.device("cpu")
+    x = im["images"][:16]
+    zoo_c, mux_c = _to_device(im["zoo"], cpu), _to_device(im["mux"], cpu)
+    worst = 0.0
+    for n in im["cfg"].zoo:
+        cps = cnn.ZOO_SPECS[n]["convs_per_stage"]
+        got = cnn.cnn_forward(im["zoo"][n], torch.from_numpy(x).to(dev),
+                              convs_per_stage=cps)
+        want = cnn.cnn_forward(zoo_c[n], torch.from_numpy(x),
+                               convs_per_stage=cps)
+        err = max((g.cpu() - w).abs().max().item()
+                  for g, w in zip(got, want))
+        log(f"image zoo {n} on the card vs CPU: max logit / embedding diff "
+            f"{err:.3e} tol={IMAGE_TOL:g}")
+        check(err <= IMAGE_TOL, f"image zoo {n} card vs CPU: {err:.3e}")
+        worst = max(worst, err)
+    got = image_server(im, dev).serve(x)
+    want = image_server(im, cpu, zoo=zoo_c, mux=mux_c).serve(x)
+    w_err = (got["weights"].cpu() - want["weights"]).abs().max().item()
+    top = want["weights"].sort(-1).values
+    clear = (top[:, -1] - top[:, -2]) > IMAGE_W_TOL
+    same = torch.equal(got["assign"].cpu()[clear], want["assign"][clear])
+    log(f"image serve on the card vs CPU: max weight diff {w_err:.3e} "
+        f"tol={IMAGE_W_TOL:g}, assignments equal on {int(clear.sum())} "
+        f"clear rows of 16: {same}")
+    check(w_err <= IMAGE_W_TOL and same,
+          f"image serve card vs CPU: weights {w_err:.3e}, assign {same}")
+    return worst
+
+
+def same_step(tag, got, want) -> bool:
+    """The graphed batch step against the eager one on the same batch:
+    bitwise, or weights within ``IMAGE_W_TOL`` and outputs within
+    ``IMAGE_TOL`` with the same routing, the reason logged."""
+    import torch
+    names = ("output", "assign", "kept", "weights", "flops")
+    if all(torch.equal(g, w) for g, w in zip(got, want)):
+        return True
+    diffs = {n: (g.double() - w.double()).abs().max().item()
+             for n, g, w in zip(names, got, want)}
+    log(f"  {tag}: graphed step not bitwise equal to the eager one "
+        f"({diffs}): the graph's kernels are those of its capture (a "
+        f"library may pick another algorithm under capture); held within "
+        f"{IMAGE_W_TOL:g} / {IMAGE_TOL:g}")
+    check(diffs["weights"] <= IMAGE_W_TOL and diffs["output"] <= IMAGE_TOL
+          and diffs["assign"] == 0 and diffs["kept"] == 0,
+          f"{tag}: graphed step differs from eager: {diffs}")
+    return False
+
+
+def serve_images(dev, im, server, policy: str) -> dict:
+    """``MuxServer.serve`` on the ``eval_samples`` images in batches of
+    ``SERVE_B``: every output finite, ``assign`` equal to ``select`` on the
+    returned weights, ``flops`` equal to ``costs[assign]``, the capacity
+    rule (under a threshold every row kept; under argmax a model keeps
+    min(its rows, capacity) and an overflowed row is zero), K2 launched
+    once a serve (its first call also warms up) and the serve graph's
+    capture tallying one K2 launch, the graphed step against the eager
+    ``_batch_step`` on every batch.  Times the step graphed and eager
+    (CUDA events, the images on the card) and the host microseconds a
+    step call, and the wall ms of ``serve`` a batch (host images in,
+    host reads of the meter out)."""
+    import torch
+    from repro_torch.kernels import ops
+    xs = im["images"]
+    costs = torch.tensor(im["costs"], device=dev)
+    n = len(im["costs"])
+    cap = (SERVE_B if server.cfg.threshold is not None
+           else max(1, int(server.cfg.capacity_factor * SERVE_B / n)))
+    walls, k2, flops, called, bitwise = [], [], [], [], 0
+    for i in range(len(xs) // SERVE_B):
+        x = xs[i * SERVE_B:(i + 1) * SERVE_B]
+        torch.cuda.synchronize()
+        before = ops.launches["mux_score"]
+        t0 = time.perf_counter()
+        res = server.serve(x)
+        walls.append((time.perf_counter() - t0) * 1e3)
+        k2.append(ops.launches["mux_score"] - before)
+        tag = f"image serve {policy} batch {i}"
+        out, assign, kept = res["output"], res["assign"], res["kept"]
+        check(bool(torch.isfinite(out).all())
+              and bool(torch.isfinite(res["weights"]).all()),
+              f"{tag}: non-finite output")
+        check(torch.equal(assign, server.select_eager(res["weights"])),
+              f"{tag}: assign is not select on the returned weights")
+        check(torch.equal(res["flops"], costs[assign.long()]),
+              f"{tag}: flops != costs[assign]")
+        counts = torch.bincount(assign.long(), minlength=n)
+        kept_by = torch.bincount(assign.long()[kept], minlength=n)
+        check(torch.equal(kept_by, counts.clamp(max=cap)),
+              f"{tag}: kept {kept_by.tolist()} of {counts.tolist()} at "
+              f"capacity {cap}")
+        check(not bool(out[~kept].any()), f"{tag}: a dropped row is not 0")
+        xd = torch.from_numpy(x).to(dev)
+        bitwise += same_step(tag, server._step_graph(xd),
+                             server._batch_step(xd))
+        flops.append(res["mean_flops"])
+        called.append(res["called_fraction"])
+    check(k2[0] == 2 and all(c == 1 for c in k2[1:]),
+          f"image serve {policy}: K2 launches a serve {k2}")
+    check(server._step_graph.replay_launches(xd) == {"mux_score": 1},
+          f"image serve {policy}: the serve graph's capture tallied "
+          f"{server._step_graph.replay_launches(xd)}")
+    step = {"graph": lambda j: server._step_graph(xd),
+            "eager": lambda j: server._batch_step(xd)}
+    row = {"policy": policy, "capacity": cap, "batches": len(walls),
+           "k2_launches": k2, "bitwise_batches": bitwise,
+           "serve_wall_ms": walls,
+           "serve_wall_ms_median": float(np.median(walls[1:])),
+           "mean_flops": float(np.mean(flops)),
+           "called_fraction": np.mean(called, axis=0).tolist(),
+           "rows_kept": int(kept.sum())}
+    for name, fn in step.items():
+        row[f"step_{name}_ms"] = time_cuda(fn, iters=20)
+        row[f"step_{name}_host_us"] = host_us(fn, calls=20)
+    row["images_per_s"] = SERVE_B / (row["serve_wall_ms_median"] / 1e3)
+    row["saving_factor"] = max(im["costs"]) / row["mean_flops"]
+    log(f"image serve {policy} (capacity {cap}): step graphed "
+        f"{row['step_graph_ms']:.3f} ms / eager {row['step_eager_ms']:.3f} "
+        f"ms a batch of {SERVE_B} (host {row['step_graph_host_us']:.0f} / "
+        f"{row['step_eager_host_us']:.0f} us a call); serve wall "
+        f"{row['serve_wall_ms_median']:.3f} ms, {row['images_per_s']:.0f} "
+        f"images/s; mean_flops {row['mean_flops']:.4g}, saving "
+        f"{row['saving_factor']:.3f}x vs always-largest, called "
+        f"{[round(c, 4) for c in row['called_fraction']]}; K2 {k2}; "
+        f"graphed step bitwise equal to eager on {bitwise} of "
+        f"{len(walls)} batches")
+    return row
+
+
+def image_threshold(server, x) -> float:
+    """A threshold on the cheapest model's weight in the widest gap of
+    the middle half of its sorted values on ``x``: a quarter to three
+    quarters of the rows clear it, so at least two models get traffic."""
+    import torch
+    w0 = server.probe_eager(torch.from_numpy(x).to(server.device))[:, 0]
+    w0 = np.sort(w0.cpu().numpy())
+    lo = len(w0) // 4
+    i = lo + int(np.argmax(np.diff(w0[lo:len(w0) - lo + 1])))
+    return float((w0[i] + w0[i + 1]) / 2)
+
+
+def graph_signatures(server) -> dict:
+    return {name: len(g._graphs) for name, g in server.graphs().items()}
+
+
+def serve_image_scheduler(dev, im, server) -> dict:
+    """``bench_scheduler.py``'s setup at the paper's size: ``MuxScheduler``
+    (``SchedulerConfig(max_batch_size=8, max_wait_ms=4.0,
+    default_slo_ms=250.0)``) over one ``InProcessMuxBackend`` per zoo
+    model, ``SCHED_REQUESTS`` images arriving at Poisson 400/s and bursty
+    200/s, ``warmup`` before the traffic.  ``server`` is the thresholded
+    one: under argmax the random mux sends every image to one model, so
+    only one worker would run.  Checks: every request
+    completes, bitwise equal to ``reference_output(x,
+    reference_assignment(x))``; K2 launched once a probe chunk (one a
+    request at ``probe_batch_size`` 1); no graph captured after
+    ``warmup``.  Returns each load's snapshot figures."""
+    import asyncio
+
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.serving.scheduler import (MuxScheduler,
+                                               SchedulerConfig,
+                                               TrafficConfig, arrival_times,
+                                               replay)
+    xs = im["images"][:SCHED_REQUESTS]
+    runs = {}
+    for pattern, rate in SCHED_LOADS:
+        sched = MuxScheduler(server, SchedulerConfig(
+            max_batch_size=8, max_wait_ms=4.0, default_slo_ms=250.0))
+        t0 = time.perf_counter()
+        sched.warmup(xs[0])
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        sigs = graph_signatures(server)
+        times = arrival_times(TrafficConfig(rate=rate, pattern=pattern,
+                                            num_requests=len(xs), seed=SEED))
+
+        async def run():
+            async with sched:
+                futures = await replay(sched.submit, list(xs), times)
+                return await asyncio.gather(*futures)
+        before = ops.launches["mux_score"]
+        t0 = time.perf_counter()
+        outputs = asyncio.run(run())
+        wall = time.perf_counter() - t0
+        k2 = ops.launches["mux_score"] - before
+        tag = f"image scheduler {pattern}@{rate:g}"
+        check(graph_signatures(server) == sigs,
+              f"{tag}: graphs captured after warmup: {sigs} -> "
+              f"{graph_signatures(server)}")
+        check(k2 == len(xs), f"{tag}: K2 launched {k2} times for "
+              f"{len(xs)} probe chunks")
+        snap = sched.snapshot()
+        check(snap["completed"] == len(xs) and snap["failed"] == 0,
+              f"{tag}: {snap['completed']} completed, {snap['failed']} "
+              f"failed of {len(xs)}")
+        for i, out in enumerate(outputs):
+            m = sched.reference_assignment(xs[i])
+            check(np.array_equal(np.asarray(out),
+                                 sched.reference_output(xs[i], m)),
+                  f"{tag}: request {i}'s output is not bitwise equal to "
+                  f"the direct model step")
+        row = {k: snap[k] for k in (
+            "throughput_rps", "total_p50_ms", "total_p99_ms",
+            "queue_p99_ms", "mean_batch_fill", "flops_saving_factor",
+            "slo_violations", "batches", "called_fraction")}
+        row.update(requests=len(xs), wall_s=wall, warmup_s=warm_s,
+                   k2_launches=k2, graphs=sigs, bitwise=True)
+        log(f"{tag}: {json.dumps(row)}")
+        runs[f"{pattern}@{rate:g}"] = row
+    return runs
+
+
+def time_mux_meta(dev, im, server) -> list:
+    """K2's meta form at its served shapes, on the served operands (the
+    backbone's meta-features of the first images, the mux's v and
+    cost_rel ** alpha, ``normalize=False``): B = 1 (the scheduler's
+    probe) and B = ``SERVE_B`` (``serve``), M = 64, N = 6.  Eager
+    (``time_cuda``), as a CUDA graph (``time_cuda_graph``), host
+    microseconds a call, and the plain version eager, beside the bound:
+    meta, v and cost read once and the weights written once over HBM
+    bandwidth, against the dots' and softmax's fp32 operations."""
+    import torch
+    from repro_torch.core.multiplexer import backbone_forward
+    from repro_torch.kernels.mux_score import mux_score_cuda
+    from repro_torch.kernels.ref import mux_score_ref
+    v, cost = im["mux"]["v"], server.cost_pow
+    rows = []
+    for b in (1, SERVE_B):
+        meta = backbone_forward(im["mux"]["backbone"],
+                                torch.from_numpy(im["images"][:b]).to(dev))
+        m_dim, n = meta.shape[1], v.shape[0]
+
+        def kern(i):
+            return mux_score_cuda(meta, v, cost, normalize=False)
+
+        def plain(i):
+            return mux_score_ref(meta, v, cost, normalize=False)
+        err = (kern(0) - plain(0)).abs().max().item()
+        check(err <= F32_MUX_TOL, f"K2 meta served B={b}: {err:.3e}")
+        byts = 4 * (b * m_dim + n * m_dim + n + b * n)
+        flops = 2 * b * n * m_dim + 6 * b * n
+        t_bytes = byts / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / FP32_FLOPS * 1e3
+        row = {"shape": f"B={b} M={m_dim} N={n} normalize=False",
+               "max_abs_err": err, "ms": time_cuda(kern, iters=1000),
+               "graph_ms": time_cuda_graph(kern, iters=100),
+               "host_us": host_us(kern),
+               "plain_ms": time_cuda(plain, iters=1000),
+               "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        log(f"K2 meta form served {row['shape']}: eager {row['ms']:.4f} ms, "
+            f"as a CUDA graph {row['graph_ms']:.4f} ms, host "
+            f"{row['host_us']:.1f} us, plain {row['plain_ms']:.4f} ms, "
+            f"bound {row['bound_ms']:.3e} ms ({row['bound_by']}), max_err "
+            f"{err:.3e}")
+        rows.append(row)
+    return rows
+
+
+def image_mux_phase(dev) -> tuple:
+    """Phase 7 (see the module docstring).  cuDNN's TF32 switch is turned
+    on for the phase, so the card-vs-CPU check holds the port's own
+    scoping of full-fp32 convolutions, not this script's global flag.
+    Returns (the phase's figures, the argmax server, one batch of
+    images) for the profiled ``serve`` step at the end of the run."""
+    import torch
+    t0 = time.perf_counter()
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        im = build_image_mux(dev)
+        out = {"cpu_max_diff": check_image_against_cpu(dev, im)}
+        check(torch.backends.cudnn.allow_tf32,
+              "the zoo's forward left cuDNN's TF32 switch off")
+        argmax = image_server(im, dev)
+        thr = image_threshold(argmax, im["images"][:SERVE_B])
+        out["serve"] = {"argmax": serve_images(dev, im, argmax, "argmax")}
+        thresholded = image_server(im, dev, threshold=thr)
+        out["serve"]["threshold"] = serve_images(dev, im, thresholded,
+                                                 f"threshold {thr:.6f}")
+        out["threshold"] = thr
+        check(sum(c > 0 for c in out["serve"]["threshold"]["called_fraction"])
+              >= 2, "image serve threshold: fewer than two models get traffic")
+        out["scheduler"] = serve_image_scheduler(dev, im, thresholded)
+        out["meta_form"] = time_mux_meta(dev, im, argmax)
+        out["meta_launches"] = {
+            "serve": sum(sum(r["k2_launches"])
+                         for r in out["serve"].values()),
+            "scheduler": sum(r["k2_launches"]
+                             for r in out["scheduler"].values())}
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"phase 7, image mux: {out['wall_s']:.1f} s wall")
+    return out, argmax, im["images"][:SERVE_B]
+
+
+def profile_serve(dev, server, x, wall_ms: float) -> dict:
+    """Device busy ms and launches of one graphed ``serve`` step from
+    ``torch.profiler`` over 10 replays (the images on the card), against
+    ``wall_ms``, the median wall ms of an unprofiled ``serve``: the idle
+    share; the rows must show ``mux_score_kernel`` once a step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    xd = torch.from_numpy(x).to(dev)
+    for _ in range(3):
+        server._step_graph(xd)
+    torch.cuda.synchronize()
+    calls = 10
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            server._step_graph(xd)
+        torch.cuda.synchronize()
+    rows = _device_rows(prof)
+    k2 = sum(c for _, c, k in rows if "mux_score_kernel" in k)
+    check(k2 == calls, f"serve profile: {k2} K2 launches in {calls} steps")
+    busy = sum(r[0] for r in rows) / calls
+    out = {"device_busy_ms": busy,
+           "launches": sum(r[1] for r in rows) / calls,
+           "serve_wall_ms": wall_ms, "idle_share": 1.0 - busy / wall_ms,
+           "top": [[round(ms / calls, 5), c // calls, k]
+                   for ms, c, k in rows[:8]]}
+    log(f"image serve graphed step profile: device busy {busy:.4f} ms, "
+        f"{out['launches']:g} launches a step, serve wall {wall_ms:.3f} ms, "
+        f"idle {out['idle_share']:.3f}; top {out['top']}")
+    return out
+
+
 def main(argv) -> int:
     import argparse
     import torch
@@ -2425,9 +2857,14 @@ def main(argv) -> int:
     check(finite["seen"] > 0 and finite["bad"] == 0,
           f"phase 6: {finite['bad']} of {finite['seen']} logits tensors not "
           f"finite")
+    # phase 7: the paper's image mux (serve and MuxScheduler)
+    image, image_srv, image_x = image_mux_phase(dev)
     # last: its torch.profiler window leaves the host slower at every later
     # launch, which would show in the served phases' decode rates
     probe["by_path"] = time_probe(dev, probe_srv, probe_tokens)
+    image["serve_profile"] = profile_serve(
+        dev, image_srv, image_x,
+        image["serve"]["argmax"]["serve_wall_ms_median"])
 
     launches = run["launches"]
     kernels = [
@@ -2442,9 +2879,13 @@ def main(argv) -> int:
          "source": "src/repro_torch/csrc/mux_score.cu",
          "replaces": "src/repro/kernels/mux_score.py:47",
          "launches": launches["mux_score"],
-         "max_abs_err": k2_err, "ms": k2["ms"], "graph_ms": k2["graph_ms"],
+         "meta_launches": image["meta_launches"],
+         "max_abs_err": max(k2_err, *(r["max_abs_err"]
+                                      for r in image["meta_form"])),
+         "ms": k2["ms"], "graph_ms": k2["graph_ms"],
          "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
-         "bound_by": k2["bound_by"], "library_ms": None},
+         "bound_by": k2["bound_by"], "library_ms": None,
+         "meta_form": image["meta_form"]},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention_sm90.cu",
          "replaces": "src/repro/kernels/flash_attention.py:157",
@@ -2463,7 +2904,9 @@ def main(argv) -> int:
     # launches: the scheduler path's run (K1-K3) and phase 6's falcon-mamba
     # run (K4); plain_ms is the plain PyTorch version's time, no yardstick
     # of speed; K2's ms / bound are its head form's at the served probe
-    # shape (graph_ms: the same as a CUDA graph, as the probe runs it)
+    # shape (graph_ms: the same as a CUDA graph, as the probe runs it);
+    # its meta form's launches on phase 7's image path (serve, scheduler)
+    # and its times at the served shapes are meta_launches / meta_form
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"paged_attention_ptxas": k1_res,
                       "paged_attention_by_shape": k1["shapes"]}), flush=True)
@@ -2496,6 +2939,7 @@ def main(argv) -> int:
     print(json.dumps({"decode_graphs": graphs}), flush=True)
     print(json.dumps({"probe": {"mux_score_ptxas": k2_res, "mux_score": k2,
                                 **probe}}), flush=True)
+    print(json.dumps({"image_mux": image}), flush=True)
     return finish()
 
 

@@ -3,14 +3,18 @@ head.
 
     w_i(x) = softmax_i( sum_j v_ij m_j(x) / c_i )        (Eq. 5-6)
 
-Port of the token branch of ``repro.core.multiplexer``: a 2-layer
-transformer probe over the prompt prefix produces the meta-features.
-The probe is split into its trunk (tokens -> last hidden states) and
-its head (mean pool, out projection, tanh), which the serving path
-fuses with Eq. 5-6 into one kernel (``ops.mux_head``).
-The image backbone comes with the CNN zoo.  Params are plain dicts of
-tensors with the JAX package's tree (``repro_torch.convert`` carries
-them across).
+Port of ``repro.core.multiplexer``'s serving side.  The backbone
+producing the meta-features m(x) is modality-specific:
+
+* images -> the paper's 4-conv CNN (``repro_torch.models.cnn``,
+  ``init_image_backbone``; params under ``"net"``);
+* tokens -> a 2-layer transformer probe over the prompt prefix, split
+  into its trunk (tokens -> last hidden states) and its head (mean
+  pool, out projection, tanh), which the token server fuses with
+  Eq. 5-6 into one kernel (``ops.mux_head``).
+
+Params are plain dicts of tensors with the JAX package's tree
+(``repro_torch.convert`` carries them across).
 """
 from __future__ import annotations
 
@@ -21,10 +25,19 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import cnn as cnn_mod
 from repro_torch.models.layers import dense_init, truncated_normal
 
 Params = Dict[str, Any]
 PROBE_LEN = 64          # prompt tokens the token probe reads
+
+
+def init_image_backbone(generator: Optional[torch.Generator] = None, *,
+                        meta_dim: int, in_ch: int = 3,
+                        device: DeviceLike = None) -> Params:
+    """The paper's 4-conv CNN backbone (fp32 params)."""
+    return {"net": cnn_mod.init_mux_backbone(generator, meta_dim=meta_dim,
+                                             in_ch=in_ch, device=device)}
 
 
 def init_token_backbone(generator: Optional[torch.Generator] = None, *,
@@ -85,8 +98,8 @@ def _token_backbone_forward(p: Params, tokens, **static) -> torch.Tensor:
 
 
 def backbone_forward(params: Params, x, **static) -> torch.Tensor:
-    if "net" in params:
-        raise NotImplementedError("the image backbone is not ported yet")
+    if "net" in params:                      # image backbone
+        return cnn_mod.mux_backbone_forward(params["net"], x)
     return _token_backbone_forward(params, x, **static)
 
 

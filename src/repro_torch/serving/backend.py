@@ -1,7 +1,8 @@
 """ModelBackend — the scheduler ⇄ execution seam.
 
 A copy of ``repro.serving.backend`` trimmed to what
-``PagedLLMScheduler`` over ``InProcessBackend`` calls.  A backend owns
+``PagedLLMScheduler`` over ``InProcessBackend`` and ``MuxScheduler``
+over ``InProcessMuxBackend`` call.  A backend owns
 *where and how* one model's device work runs — its executors, queues
 and pools — while the scheduler keeps owning *what* runs when
 (admission, EDF chunk ordering, the continuous decode sweep,
@@ -13,13 +14,15 @@ The executor surface (all device work is ``await``-ed):
     await prefill_chunk(seq)  one prefill chunk; True once sealed
     await decode_batch(seqs)  one token for every running sequence
     await probe(prompt)       score/prewarm the model on one prompt
+    await step(bucket)        one request-level model step (mux path)
     release(seq)              hand back everything the sequence holds
     admissible()/fits_ever()/capacity()/healthy   admission introspection
 
 ``InProcessBackend`` wraps one paged ``Engine`` on a single-thread
-executor.  Not ported yet (``ROADMAP.md``): ``InProcessMuxBackend``
-(with ``MuxScheduler``), ``DisaggregatedBackend``, the remote stub and
-its wire protocol, lazy decode allocation and the prefix digest.
+executor; ``InProcessMuxBackend`` one mux-zoo model
+(``MuxServer.model_step``) on one.  Not ported yet (``ROADMAP.md``):
+``DisaggregatedBackend``, the remote stub and its wire protocol, lazy
+decode allocation and the prefix digest.
 """
 from __future__ import annotations
 
@@ -30,6 +33,7 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.serving.kv_cache import OutOfPages
 from repro_torch.serving.observability.tracer import (NULL_TRACER,
@@ -112,6 +116,10 @@ class ModelBackend:
         implementation supports it, prewarm caches so a follow-up
         admission of the same prompt is cheap)."""
         raise NotImplementedError(f"{self.name} has no probe surface")
+
+    # ---- request-level surface (mux path) -----------------------------
+    async def step(self, bucket) -> np.ndarray:
+        raise NotImplementedError(f"{self.name} has no request-level surface")
 
     # ---- admission introspection --------------------------------------
     def capacity(self) -> BackendCapacity:
@@ -391,3 +399,42 @@ class InProcessBackend(_ExecutorMixin, ModelBackend):
             "logit_cache_misses": e.logit_cache_misses,
             "whole_prompt_prefills": e.whole_prompt_prefills,
         }
+
+
+def to_host(x) -> np.ndarray:
+    """A device tensor (or array-like) as a numpy array on the host."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+class InProcessMuxBackend(_ExecutorMixin, ModelBackend):
+    """One mux-zoo model (``server.model_step(m, ...)``) behind the
+    backend protocol — the request-level counterpart of
+    ``InProcessBackend``.  ``capacity().decode_batch`` reports the
+    bucket capacity and ``inflight`` the queued device calls, which is
+    what makes the admission controller's service estimates
+    queue-depth-aware."""
+
+    def __init__(self, server, model_id: int, *, bucket_capacity: int,
+                 name: Optional[str] = None):
+        self.server = server
+        self.model_id = model_id
+        self.bucket_capacity = bucket_capacity
+        self.name = name or f"mux:{model_id}"
+        self._init_executors(["device"])
+
+    async def step(self, bucket) -> np.ndarray:
+        return await self._run(
+            "device",
+            lambda: to_host(self.server.model_step(self.model_id, bucket)),
+            op="step")
+
+    async def probe(self, bucket):
+        return await self._run(
+            "device", lambda: to_host(self.server.probe_weights(bucket)),
+            op="probe")
+
+    def capacity(self) -> BackendCapacity:
+        return BackendCapacity(decode_batch=self.bucket_capacity,
+                               inflight=self._inflight)

@@ -1,11 +1,17 @@
-"""Per-model queues and the decode roster.
+"""Per-model queues, the micro-batch former, and the decode roster.
 
-A copy of ``repro.serving.scheduler.batcher`` without
-``MicroBatcher`` and its ``BatchingPolicy`` (the request-level batch
-former of ``MuxScheduler``, which comes with the CNN zoo).  ModelQueue is a (priority, deadline)-ordered queue of
-admitted requests for one zoo model: higher SamplingParams.priority is
-served first, EDF breaks ties within a band.  DecodeSlots is the
-token-level loop's roster of running generations.
+A copy of ``repro.serving.scheduler.batcher``.  ModelQueue is a
+(priority, deadline)-ordered queue of admitted requests for one zoo
+model: higher SamplingParams.priority is served first, EDF breaks ties
+within a band.  MicroBatcher (``MuxScheduler``'s) decides *when* a
+queue is worth draining — batch full, or the oldest request has waited
+max_wait_ms — and *what* to drain (up to max_batch_size requests in
+queue order, silently discarding requests cancelled while they
+waited), then pads the drained samples into the worker's static-shape
+bucket with ``routing.pad_bucket_host``, the host rendering of the
+scatter math the single-program multiplexer uses for its per-model
+buckets.  DecodeSlots is the token-level loop's roster of running
+generations.
 """
 from __future__ import annotations
 
@@ -14,6 +20,7 @@ import dataclasses
 import heapq
 from typing import Any, Deque, List, Optional, Tuple
 
+from repro_torch.core import routing
 from repro_torch.serving.scheduler.request import Request, RequestState
 
 
@@ -85,6 +92,61 @@ class ModelQueue:
         state without being popped (user cancel): drop it from the
         live count now rather than when a drain sweeps it out."""
         self._live = max(0, self._live - 1)
+
+
+@dataclasses.dataclass
+class BatchingPolicy:
+    max_batch_size: int = 8     # bucket capacity (static shape)
+    max_wait_ms: float = 5.0    # flush even a lone request after this
+
+
+class MicroBatcher:
+    """Forms static-shape micro-batches from a ModelQueue under policy."""
+
+    def __init__(self, policy: BatchingPolicy):
+        self.policy = policy
+
+    # ---- when ---------------------------------------------------------
+    def ready(self, queue: ModelQueue, now: float) -> bool:
+        if len(queue) == 0:
+            return False
+        if len(queue) >= self.policy.max_batch_size:
+            return True
+        oldest = queue.oldest_enqueue_t
+        if oldest is None:           # only cancelled leftovers in the heap
+            return False
+        return (now - oldest) * 1e3 >= self.policy.max_wait_ms
+
+    def time_until_ready(self, queue: ModelQueue, now: float
+                         ) -> Optional[float]:
+        """Seconds until the max-wait flush fires; None if queue empty."""
+        oldest = queue.oldest_enqueue_t
+        if oldest is None:
+            return None
+        return max(0.0, self.policy.max_wait_ms / 1e3 - (now - oldest))
+
+    # ---- what ---------------------------------------------------------
+    def form(self, queue: ModelQueue, now: float) -> List[Request]:
+        """Drain up to max_batch_size requests in queue order.
+        Requests cancelled while they waited are discarded here — their
+        futures were already resolved by the cancel — so a cancel never
+        occupies a bucket row."""
+        batch: List[Request] = []
+        while len(queue) and len(batch) < self.policy.max_batch_size:
+            req = queue.pop()
+            if req.state is not RequestState.QUEUED:    # cancelled in queue
+                continue
+            req.state = RequestState.BATCHED
+            req.batched_t = now
+            batch.append(req)
+        return batch
+
+    def form_bucket(self, batch: List[Request]) -> Tuple[Any, Any]:
+        """Stack + pad drained samples into the fixed (C, ...) bucket.
+        Row i of the bucket is batch[i], so workers read outputs back by
+        row.  Host-side (numpy): no device work on the event loop."""
+        return routing.pad_bucket_host([req.x for req in batch],
+                                       self.policy.max_batch_size)
 
 
 # ---------------------------------------------------------------------------

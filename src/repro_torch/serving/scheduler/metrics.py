@@ -1,26 +1,31 @@
 """Metrics registry for the serving runtime.
 
 A copy of ``repro.serving.scheduler.metrics`` without what only the
-request-level runtime, the admission controller and the disaggregated
-backend feed (deadline-degrade and shed counters, the per-model
-service-time EMA, KV-transfer timings).
+disaggregated backend feeds (KV-transfer timings).
 
 Counts every lifecycle transition and keeps latency reservoirs so a
 snapshot can report the serving numbers that matter for the paper's
 cloud story: throughput, p50/p99 queue + service + total latency,
 time-to-first-token and inter-token latency, per-model utilization and
-call fractions, decode-batch fill, and the Eq. 14 compute saving of
-mux routing vs always calling the largest model.  Backends feed
-per-backend executor queue waits through ``on_backend_queue_wait``.
+call fractions, micro-batch and decode-batch fill, and the Eq. 14 compute saving of
+mux routing vs always calling the largest model.
+
+The registry also keeps a per-model EMA of observed service time; the
+admission controller's deadline-degrade hook (MDInference-style)
+consults it — scaled by the queue depth the backends report — to
+re-route requests whose remaining SLO budget the selected model cannot
+meet, and its hard-shed path counts BUDGET_EXCEEDED drops here.
+Backends feed per-backend executor queue waits through
+``on_backend_queue_wait``.
 
 The registry is also the tracing bridge (``bind_tracer``): every
 terminal request flows through ``on_complete``/``on_fail``/
 ``on_cancel``, so this is where the per-request span timeline
 (ADMIT/QUEUED/PREFILL/DECODE/FINISH, reconstructed from the request's
-lifecycle timestamps — zero hot-path cost) is emitted, where the
-flight recorder trips on request failure or SLO violation, and where
-the tracer's instant stream is consumed back into snapshot-visible
-counts.  Latency attribution decomposes each completed request into
+lifecycle timestamps — zero hot-path cost) and the degrade/shed
+decision instants are emitted, where the flight recorder trips on
+request failure or SLO violation, and where the tracer's instant
+stream is consumed back into snapshot-visible counts.  Latency attribution decomposes each completed request into
 queue / prefill / decode phases and keeps per-model TTFT and ITL
 reservoirs alongside the global ones.
 """
@@ -79,7 +84,10 @@ class LatencyReservoir:
 
 
 class SchedulerMetrics:
-    """One registry per scheduler; workers and backends feed it."""
+    """One registry per scheduler; workers, admission and backends
+    feed it."""
+
+    SERVICE_EMA_ALPHA = 0.2     # per-model service-time estimate smoothing
 
     def __init__(self, costs: Sequence[float], clock=time.monotonic):
         self.clock = clock
@@ -91,6 +99,8 @@ class SchedulerMetrics:
         self.failed = 0
         self.cancelled = 0
         self.slo_violations = 0
+        self.deadline_degraded = 0       # admission degrade-hook re-routes
+        self.budget_exceeded = 0         # hard load sheds (BUDGET_EXCEEDED)
         self.batches = 0
         self.batched_requests = 0        # real rows across all buckets
         self.bucket_rows = 0             # capacity rows across all buckets
@@ -125,6 +135,7 @@ class SchedulerMetrics:
         # chunks against this distribution once it has evidence,
         # instead of guessing a stall from the inter-token latency
         self.chunk_stall_page = [self._reservoir() for _ in range(n)]
+        self._service_ema: List[Optional[float]] = [None] * n
         self.tracer = NULL_TRACER
         self.trace_instants: Dict[str, int] = {}
         self.started_t: Optional[float] = None
@@ -242,6 +253,12 @@ class SchedulerMetrics:
         self.phase_lat["queue"].add(queue)
         self.phase_lat["prefill"].add(prefill)
         self.phase_lat["decode"].add(decode)
+        prev = self._service_ema[req.model_id]
+        obs = req.service_latency
+        self._service_ema[req.model_id] = (
+            obs if prev is None
+            else self.SERVICE_EMA_ALPHA * obs
+            + (1.0 - self.SERVICE_EMA_ALPHA) * prev)
         if req.missed_deadline():
             self.slo_violations += 1
             self.tracer.trip("slo_violation")
@@ -257,6 +274,19 @@ class SchedulerMetrics:
         self.cancelled += 1
         self._note_rejected(req)
         self._trace_request(req)
+
+    def on_degrade(self, req: Request, from_model: int, to_model: int) -> None:
+        self.deadline_degraded += 1
+        self.tracer.instant("degrade", args={"rid": req.rid,
+                                             "from": from_model,
+                                             "to": to_model})
+
+    def on_shed(self, req: Request) -> None:
+        """One hard load shed (BUDGET_EXCEEDED); the accompanying
+        on_fail keeps the arrived == completed+failed+cancelled books
+        closed — this counter is the policy-level why."""
+        self.budget_exceeded += 1
+        self.tracer.instant("shed", args={"rid": req.rid})
 
     def on_decode_gap(self, model_id: int, seconds: float) -> None:
         """One inter-token gap from the continuous-decode loop."""
@@ -287,6 +317,11 @@ class SchedulerMetrics:
             return None
         return r.percentile_ms(percentile) / 1e3
 
+    def service_estimate(self, model_id: int) -> Optional[float]:
+        """EMA of observed service time for one model (seconds); None
+        until that model has completed at least one request."""
+        return self._service_ema[model_id]
+
     # ---- report -------------------------------------------------------
     def snapshot(self, now: Optional[float] = None) -> Dict[str, Any]:
         """Valid mid-run too: before stop(), elapsed runs to now (or
@@ -305,6 +340,8 @@ class SchedulerMetrics:
             "failed": self.failed,
             "cancelled": self.cancelled,
             "slo_violations": self.slo_violations,
+            "deadline_degraded": self.deadline_degraded,
+            "budget_exceeded": self.budget_exceeded,
             "elapsed_s": elapsed,
             "throughput_rps": self.completed / elapsed if elapsed else 0.0,
             "queue_p50_ms": self.queue_lat.percentile_ms(50),

@@ -1,9 +1,8 @@
 """Request lifecycle for the continuous-batching runtime.
 
 A copy of ``repro.serving.scheduler.request`` without the finish
-reasons only the admission controller and the remote backends set
-(``BUDGET_EXCEEDED``, ``BACKEND_LOST``; a failure here is always
-"error") and the disaggregated KV-transfer wait.
+reason only the remote backends set (``BACKEND_LOST``) and the
+disaggregated KV-transfer wait.
 
 A request is one sample (one image / one prompt) moving through
 
@@ -51,6 +50,11 @@ class RequestState(enum.Enum):
 TERMINAL_STATES = (RequestState.COMPLETED, RequestState.FAILED,
                    RequestState.CANCELLED)
 
+#: finish_reason for a hard load shed: admission determined the request
+#: could not meet its SLO budget on any model and failed it fast
+#: instead of queueing a certain miss (see admission.BudgetExceeded)
+BUDGET_EXCEEDED = "budget_exceeded"
+
 
 @dataclasses.dataclass(frozen=True)
 class SamplingParams:
@@ -91,7 +95,7 @@ class GenerationEvent:
     prompt_len: Optional[int] = None   # PREFILLING: prompt tokens total
     output: Any = None                 # FINISHED: the full token array
     finish_reason: Optional[str] = None  # stop|length|complete|cancelled|
-    #                                      error
+    #                                      error|budget_exceeded
     error: Optional[BaseException] = None  # FINISHED(error)
 
 
@@ -216,16 +220,19 @@ class Request:
                                   output=output, finish_reason=reason))
         return True
 
-    def fail(self, exc: BaseException, finished_t: float) -> bool:
-        """Deliver a failure (finish reason "error"); same
-        first-transition-wins contract."""
+    def fail(self, exc: BaseException, finished_t: float,
+             reason: str = "error") -> bool:
+        """Deliver a failure; same first-transition-wins contract.
+        ``reason`` distinguishes policy failures (the admission
+        controller's BUDGET_EXCEEDED load shed) from worker errors on
+        the request and its FINISHED event."""
         if not self._finish(RequestState.FAILED, finished_t):
             return False
-        self.finish_reason = "error"
+        self.finish_reason = reason
         if self.future is not None and not self.future.done():
             self.future.set_exception(exc)
         self.emit(GenerationEvent(EventType.FINISHED, finished_t,
-                                  finish_reason="error", error=exc))
+                                  finish_reason=reason, error=exc))
         return True
 
     def cancel(self, finished_t: float) -> bool:

@@ -1,25 +1,35 @@
-"""PagedLLMScheduler — the async token-level continuous-batching
-runtime for the LLM path.
+"""MuxScheduler / PagedLLMScheduler — the async continuous-batching
+runtimes.
 
-A copy of ``repro.serving.scheduler.runtime`` without ``MuxScheduler``
-and ``SchedulerConfig`` (the request-level runtime of the CNN zoo,
-which comes with it) and without the worker's background-chunk path,
-which only a backend with ``concurrent_prefill`` (the disaggregated
-one, not ported yet) takes.  Per-engine workers interleave chunked
-prefill (new requests run their prompt through the device one chunk at
-a time, joining the running decode batch when the first token samples)
-with single-token decode steps over every running request, and free a
-request's pages the step it finishes.
+A copy of ``repro.serving.scheduler.runtime`` without the worker's
+background-chunk path, which only a backend with ``concurrent_prefill``
+(the disaggregated one, not ported yet) takes.  MuxScheduler serves
+one-shot model steps (the paper's CNN zoo) at request granularity.
+PagedLLMScheduler is the token-level loop for the LLM path: per-engine
+workers interleave chunked prefill (new requests run their prompt
+through the device one chunk at a time, joining the running decode
+batch when the first token samples) with single-token decode steps over
+every running request, and free a request's pages the step it
+finishes.
 
-    handle = sched.submit(prompt, SamplingParams(...))  # GenerationHandle
+Both runtimes share one submission surface:
+
+    handle = sched.submit(x, SamplingParams(...))       # GenerationHandle
     out = await handle.result()                         # one-shot
     async for ev in handle: ...                         # stream=True
     handle.cancel()                                     # abort any phase
 
 Execution is delegated to ``repro_torch.serving.backend.ModelBackend``s,
-one per model: a worker awaits ``backend.prefill_chunk`` /
-``backend.decode_batch`` and asks the backend about admission capacity;
-it never touches an ``Engine`` directly.
+one per model: a worker awaits ``backend.step`` /
+``backend.prefill_chunk`` / ``backend.decode_batch`` and asks the
+backend about admission capacity; it never touches an ``Engine`` or a
+``MuxServer`` directly.
+
+Determinism contract of the mux path: every bucket has the same static
+shape (max_batch_size), so each model step replays one CUDA graph on
+the card, and a request's output is bitwise equal to
+``reference_output``, the same model step applied to that request alone
+in a padded bucket.
 """
 from __future__ import annotations
 
@@ -30,13 +40,20 @@ import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
-from repro_torch.serving.backend import InProcessBackend, ModelBackend
+from repro_torch.core import routing
+from repro_torch.serving.backend import (InProcessBackend,
+                                         InProcessMuxBackend, ModelBackend,
+                                         to_host)
 from repro_torch.serving.kv_cache import OutOfPages
 from repro_torch.serving.observability import (NULL_TRACER, backend_track,
                                                prewarm_residents,
                                                request_track, sample_gauges)
-from repro_torch.serving.scheduler.batcher import DecodeSlots, ModelQueue
+from repro_torch.serving.scheduler.admission import AdmissionController
+from repro_torch.serving.scheduler.batcher import (BatchingPolicy,
+                                                   DecodeSlots, MicroBatcher,
+                                                   ModelQueue)
 from repro_torch.serving.scheduler.metrics import SchedulerMetrics
 from repro_torch.serving.scheduler.request import (GenerationHandle,
                                                    Request, RequestState,
@@ -220,6 +237,210 @@ class SchedulerLifecycle:
         return True
 
 
+@dataclasses.dataclass
+class SchedulerConfig:
+    max_batch_size: int = 8        # bucket capacity per model step
+    max_wait_ms: float = 5.0       # flush a partial batch after this
+    default_slo_ms: float = 100.0  # deadline when submit passes none
+    probe_batch_size: int = 1      # admission probe shape: arrivals are
+    #   padded/chunked to this so the probe is captured exactly once
+    #   regardless of burst size.  1 is right for open-loop singleton
+    #   submits (a bigger shape taxes every submit — the probe costs
+    #   grow with batch); raise it when traffic arrives in ticks fed
+    #   through submit_many
+    deadline_degrade: bool = False  # MDInference-style admission hook:
+    #   re-route a request to the cheapest admissible model when the
+    #   selected model's estimated service time cannot meet the
+    #   request's remaining SLO budget
+    shed_on_overload: bool = False  # hard load shedding: when even the
+    #   degraded selection cannot meet the request's SLO budget, fail
+    #   it fast with BUDGET_EXCEEDED instead of queueing a certain miss
+    #   (only meaningful with deadline_degrade=True)
+
+    def policy(self) -> BatchingPolicy:
+        return BatchingPolicy(max_batch_size=self.max_batch_size,
+                              max_wait_ms=self.max_wait_ms)
+
+
+class MuxScheduler(SchedulerLifecycle):
+    """Request-level serving runtime over a MuxServer-compatible server.
+
+    The server must expose ``probe_weights(x)``, ``select(w)``,
+    ``model_step(m, bucket)``, ``costs`` and ``num_models`` — MuxServer
+    does; tests may duck-type it.  Execution goes through one
+    ``ModelBackend`` per zoo model (default: ``InProcessMuxBackend``
+    over ``server.model_step``); pass ``backends=`` to dispatch models
+    elsewhere.
+    """
+
+    def __init__(self, server, cfg: Optional[SchedulerConfig] = None,
+                 clock=time.monotonic, *,
+                 backends: Optional[Sequence[ModelBackend]] = None,
+                 tracer=None):
+        # clock parameterizes timestamps/deadlines for testability, but
+        # worker waits still run on the event loop's real time — it
+        # must advance with wall clock (a frozen fake clock would keep
+        # max-wait flushes from ever firing)
+        self.server = server
+        self.cfg = cfg or SchedulerConfig()
+        n = server.num_models
+        if backends is None:
+            backends = [InProcessMuxBackend(
+                server, m, bucket_capacity=self.cfg.max_batch_size)
+                for m in range(n)]
+        if len(backends) != n:
+            raise ValueError(f"{len(backends)} backends for {n} models")
+        self.backends = list(backends)
+        self.queues = [ModelQueue(m) for m in range(n)]
+        self.metrics = SchedulerMetrics(to_host(server.costs).tolist(),
+                                        clock=clock)
+        self.batcher = MicroBatcher(self.cfg.policy())
+        self.admission = AdmissionController(
+            server, self.queues, self.metrics, clock,
+            probe_batch=self.cfg.probe_batch_size,
+            deadline_degrade=self.cfg.deadline_degrade,
+            backends=self.backends,
+            shed_on_overload=self.cfg.shed_on_overload)
+        self._init_lifecycle(n, clock, self.backends, tracer=tracer)
+
+    def warmup(self, sample_x) -> None:
+        """Capture the probe and select graphs at the probe shape and
+        every model step's at the bucket shape before traffic arrives
+        (one sample, no batch dim): the counterpart of the reference's
+        compiles.  Serving latency percentiles are meaningless if the
+        first requests pay a capture."""
+        self.admission.score([np.asarray(sample_x)])
+        bucket = self._bucket(sample_x)
+        for m in range(self.server.num_models):
+            to_host(self.server.model_step(m, bucket))
+
+    def _bucket(self, x):
+        """One request (no batch dim) in a padded bucket, through the
+        device-side ``routing.pad_bucket`` (on the CPU) — the scatter
+        math whose host rendering the micro-batch former uses."""
+        bucket, _ = routing.pad_bucket(
+            torch.as_tensor(np.asarray(x))[None], self.cfg.max_batch_size)
+        return bucket
+
+    # ---- submission ---------------------------------------------------
+    def submit(self, x, params: Optional[SamplingParams] = None, *,
+               slo_ms: Optional[float] = None,
+               priority: Optional[int] = None,
+               stream: Optional[bool] = None) -> GenerationHandle:
+        """Admit one request; returns its GenerationHandle."""
+        return self.submit_many([x], params, slo_ms=slo_ms,
+                                priority=priority, stream=stream)[0]
+
+    def submit_many(self, xs, params: Optional[SamplingParams] = None, *,
+                    slo_ms: Optional[float] = None,
+                    priority: Optional[int] = None,
+                    stream: Optional[bool] = None) -> List[GenerationHandle]:
+        """Admit a batch of arrivals in one call.  Scoring is chunked
+        to cfg.probe_batch_size (default 1), so to actually amortize
+        the probe over a bursty arrival tick, raise probe_batch_size
+        toward the tick size — ceil(k / probe_batch_size) device
+        dispatches run inline on the event loop either way."""
+        self._check_accepting()
+        params = _resolve_params(params, slo_ms=slo_ms, priority=priority,
+                                 stream=stream)
+        now = self.clock()
+        slo = (params.slo_ms if params.slo_ms is not None
+               else self.cfg.default_slo_ms)
+        loop = asyncio.get_running_loop()
+        reqs = []
+        for x in xs:
+            req = Request(rid=self._next_request_id(), x=x, arrival_t=now,
+                          deadline_t=now + slo / 1e3, params=params,
+                          future=loop.create_future())
+            self.metrics.on_arrival(req)
+            reqs.append(req)
+        try:
+            self.admission.admit(reqs)
+        except Exception as exc:
+            # deliver through the futures (same contract as a worker
+            # failure) so accounting stays closed: arrived == completed
+            # + failed + cancelled, and no future is left unresolved
+            t = self.clock()
+            for req in reqs:
+                if req.fail(exc, t):
+                    self.metrics.on_fail(req)
+            return [GenerationHandle(req, self) for req in reqs]
+        for req in reqs:
+            self._register_inflight(req)
+            if not req.is_terminal:     # load-shed requests never queued
+                self._events[req.model_id].set()
+        return [GenerationHandle(req, self) for req in reqs]
+
+    # ---- workers ------------------------------------------------------
+    async def _worker(self, m: int) -> None:
+        queue, event = self.queues[m], self._events[m]
+        backend = self.backends[m]
+        capacity = self.cfg.max_batch_size
+        while True:
+            now = self.clock()
+            flush = self._stopping and len(queue) > 0
+            if flush or self.batcher.ready(queue, now):
+                batch = self.batcher.form(queue, now)
+                if not batch:          # the drain hit only cancelled
+                    continue           # leftovers: nothing to run
+                self.metrics.on_batch(m, len(batch), capacity)
+                for req in batch:
+                    req.state = RequestState.RUNNING
+                    req.started_t = now
+                t0 = self.clock()
+                try:
+                    # form_bucket inside the try: a malformed request
+                    # (e.g. mismatched shape) must fail its batch, not
+                    # kill this worker and strand the model's queue
+                    bucket, _valid = self.batcher.form_bucket(batch)
+                    out = await backend.step(bucket)
+                except Exception as exc:   # deliver, don't kill the loop
+                    t1 = self.clock()
+                    for req in batch:
+                        if req.fail(exc, t1):
+                            self.metrics.on_fail(req)
+                    continue
+                t1 = self.clock()
+                self.metrics.on_model_busy(m, t1 - t0)
+                # bucket row i is batch[i]: pad_bucket preserves order
+                for i, req in enumerate(batch):
+                    # one-shot path: the whole output IS the first
+                    # token for TTFT purposes
+                    req.first_token_t = t1
+                    if req.complete(out[i], t1):
+                        self.metrics.on_complete(req)
+                continue
+            if self._stopping:
+                return
+            timeout = self.batcher.time_until_ready(queue, now)
+            try:
+                await asyncio.wait_for(event.wait(), timeout)
+            except asyncio.TimeoutError:
+                pass
+            event.clear()
+
+    # ---- determinism reference ----------------------------------------
+    def reference_assignment(self, x) -> int:
+        """The model id admission selects for a lone request — computed
+        through the exact admission scoring path (padded probe shape),
+        the only shape at which row results are stable."""
+        _w, assign = self.admission.score([np.asarray(x)])
+        return int(assign[0])
+
+    def reference_output(self, x, model_id: int) -> np.ndarray:
+        """The model called directly on one request, at the scheduler's
+        bucket shape — the bitwise reference for scheduler outputs."""
+        return to_host(self.server.model_step(model_id, self._bucket(x)))[0]
+
+    # ---- report -------------------------------------------------------
+    def snapshot(self) -> Dict[str, Any]:
+        """Metrics snapshot plus per-backend stats — the same
+        dashboard surface the paged scheduler exposes."""
+        snap = self.metrics.snapshot()
+        snap["backends"] = [b.stats() for b in self.backends]
+        return snap
+
+
 # ===========================================================================
 # Token-level continuous decode over paged engines (the LLM path)
 # ===========================================================================
@@ -228,8 +449,6 @@ class SchedulerLifecycle:
 class PagedLLMConfig:
     max_new_tokens: int = 32        # generation budget when submit passes none
     default_slo_ms: float = 5000.0  # deadline when submit passes none
-    max_workers: Optional[int] = None   # compatibility only (see
-    #   SchedulerConfig.max_workers): backends own their executors
     idle_poll_s: float = 0.05       # fallback wake-up while queues are empty
     prefill_chunk_pages: int = 0    # >0: chunked prefill — the prompt runs
     #   in chunks of this many pages, one chunk interleaved per decode

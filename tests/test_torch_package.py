@@ -40,7 +40,8 @@ def test_scan_sees_the_whole_port():
             "flash_attention.py", "backend.py", "runtime.py", "request.py",
             "metrics.py", "batcher.py", "traffic.py", "tracer.py",
             "gauges.py", "mamba.py", "selective_scan.py", "serve.py",
-            "falcon_mamba_7b.py", "graphs.py"} <= names
+            "falcon_mamba_7b.py", "graphs.py", "cnn.py", "paper_mux.py",
+            "admission.py"} <= names
     assert (ROOT / "src" / "repro_torch" / "launch" / "serve.py") in FILES
     assert not _forbidden("repro_torch.kernels")
     assert _forbidden("repro.kernels") and _forbidden("jax.numpy")
@@ -52,11 +53,14 @@ def test_entry_points_default_to_cuda_and_refuse_without_it(monkeypatch):
     import torch
 
     from repro_torch.configs import get_smoke_config
-    from repro_torch.core.multiplexer import init_mux, init_token_backbone
+    from repro_torch.core.multiplexer import (init_image_backbone, init_mux,
+                                              init_token_backbone)
     from repro_torch.launch import serve
+    from repro_torch.models import cnn
     from repro_torch.models import transformer as tf
     from repro_torch.serving.engine import Engine, ServeConfig
     from repro_torch.serving.mux_server import MuxServer
+    from repro_torch.serving.scheduler import MuxScheduler
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = get_smoke_config("olmo-1b").with_(num_layers=1, d_model=32,
@@ -68,6 +72,11 @@ def test_entry_points_default_to_cuda_and_refuse_without_it(monkeypatch):
                                    num_layers=1, device="cpu")
     mux = init_mux(backbone=backbone, model_names=["a"], costs={"a": 1.0},
                    meta_dim=4, proj_dim=2, device="cpu")
+    image_mux = init_mux(
+        backbone=init_image_backbone(meta_dim=4, device="cpu"),
+        model_names=["a"], costs={"a": 1.0}, meta_dim=4, proj_dim=2,
+        device="cpu")
+    fns = [lambda b: b]
     calls = [
         lambda: tf.init_params(cfg),
         lambda: tf.init_caches(cfg, num_pages=2, page_size=4),
@@ -76,6 +85,12 @@ def test_entry_points_default_to_cuda_and_refuse_without_it(monkeypatch):
         lambda: init_mux(backbone=backbone, model_names=["a"],
                          costs={"a": 1.0}, meta_dim=4, proj_dim=2),
         lambda: MuxServer(mux, [1.0]),
+        lambda: MuxServer(image_mux, [1.0], model_fns=fns),
+        lambda: MuxScheduler(MuxServer(image_mux, [1.0], model_fns=fns)),
+        lambda: cnn.init_cnn(widths=(4,)),
+        lambda: cnn.init_zoo(),
+        lambda: cnn.init_mux_backbone(meta_dim=4),
+        lambda: init_image_backbone(meta_dim=4),
         lambda: tf.init_caches(cfg, 1, 8),
         lambda: serve.main(["--smoke", "--tokens", "1"]),
         lambda: serve.build_engine("falcon-mamba-7b", smoke=True, max_len=8),
