@@ -172,7 +172,38 @@ Phases, each of which must pass:
    probe, no graph captured after ``warmup``; K2's meta form at its
    served shapes (B = 1 and 256, M = 64, N = 6) against
    ``mux_score_ref`` and timed.  Its wall time is printed.
-8. Last, since a ``torch.profiler`` window slows the host's later
+8. The paper's Algorithm 1 and its tables, at ``paper_mux.config()``
+   uncut, trained fresh on the card (cuDNN's TF32 switch on for the
+   phase).  First one ``zoo_train_step`` and one ``mux_train_step`` per
+   objective (``"ensemble"`` over the six CNNs, ``"offload"`` over the
+   ``zoo_xs`` / ``zoo_m`` pair) on the card and on the CPU from the same
+   seeded params and 64 images: the switch read inside every backward
+   must be off (and on when the same backward runs outside the port's
+   scope); loss, gradient norm, gradients, first moment and updated
+   params within their fp32 tolerances (``PAPER_*``).  Then
+   ``paper.common.get_state`` at the ``full`` scale: 8192 training and
+   2048 eval images drawn on the card, ``train_zoo`` 500 steps at batch
+   256, ``train_mux`` 500 steps over all six (``"ensemble"``) and 500
+   over the pair (``"offload"``), and the ablation zoo
+   (``contrastive=False``, 500 steps), with each stage's wall and median
+   ms a step after 10 warm-up steps (CUDA events).  The runners then
+   print Fig. 1's matrix, Table I's rows and TNR, Table II's rows,
+   saving factor and oracle, and Fig. 6's ratios with and without the
+   loss; checks are the JAX package's own (``tests/test_system.py``):
+   hybrid-single accuracy within 0.05 of the best single model, its
+   FLOPs no more than the largest model's, push above pull with the
+   loss; the headline figures are logged, not gated.  Last, both trained
+   muxes are served through ``MuxServer.serve`` (argmax, 256-image
+   batches, every row kept, K2's meta form as the probe's head): each
+   served assignment equals the evaluation's but on rows whose top two
+   weights lie within 1e-5 (at most 1% of rows), each served prediction
+   on the agreeing rows is right exactly where the evaluation's is
+   (Table II's hybrid-single accuracy, Table I's hybrid accuracy and
+   local fraction), and K2 launches once a ``serve`` (and once more on
+   each server's first, the graph's warm-up); K2's meta form at the
+   pair's served shape (B=256, M=64, N=2), on its trained operands, is
+   held against ``mux_score_ref`` and timed.
+9. Last, since a ``torch.profiler`` window slows the host's later
    launches: the whole probe (weights + select) at B=1, S=64, eager
    against graphed: ms a call, host microseconds a call, and device
    busy ms and launches a probe from ``torch.profiler``, whose rows
@@ -184,12 +215,16 @@ Phases, each of which must pass:
    10 graphed image ``serve`` steps
    (argmax, B = 256) under ``torch.profiler``: device busy ms and
    launches a step against the median wall ms of an unprofiled
-   ``serve``, the idle share; K2 must show once a step.
+   ``serve``, the idle share; K2 must show once a step.  Then 5
+   ``zoo_train_step``s of phase 8 under ``torch.profiler`` with cuDNN's
+   TF32 switch on: device busy ms and launches a step against the timed
+   median, and no kernel whose name says TF32.
 
 Output: progress lines, then the ``{"kernels": [...]}`` JSON line (the
 launches are phase 4's for K1-K3 and phase 6's falcon-mamba run for K4;
-K2's entry also has its meta form's launches on phase 7's image path,
-``meta_launches``, and its times at the served shapes, ``meta_form``),
+K2's entry also has its meta form's launches on phase 7's image path and
+phase 8's served trained muxes, ``meta_launches``, and its times at the
+served shapes, ``meta_form``),
 a JSON line of K1's ptxas resources and its times by shape, a JSON
 line of K4's ptxas resources and its times by batch, a JSON
 line of K3's tensor-core variant's ptxas resources and its
@@ -209,7 +244,10 @@ against the eager probe, the probe eager against graphed), an
 graphed and eager, images/s, mean_flops, saving factor and called
 fractions per policy, the scheduler's throughput, p50 / p99, queue p99,
 batch fill, saving factor and SLO violations per load, K2's meta form
-at its served shapes, the profiled serve step), the
+at its served shapes, the profiled serve step), a ``{"paper": ...}``
+line (phase 8's card-vs-CPU steps, each training stage's steps, wall,
+median ms a step and first / last loss, the tables, the headline
+figures, the served trained muxes, the profiled zoo step), the
 card's name and power limit (nvidia-smi), and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the run
 exits non-zero without that last line.  It needs one CUDA card and a
@@ -217,6 +255,7 @@ checkout of the repository (it imports ``src/repro_torch``).
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import subprocess
@@ -600,7 +639,8 @@ MUX_HEAD_CASES = ((1, 64, 128, 32, 2, False), (3, 1, 32, 8, 2, True),
                   (1, 8, 4096, 32, 2, False))   # 132 KB of shared memory
 MUX_META_CASES = ((10, 64, 6, True), (300, 32, 2, True), (7, 128, 16, True),
                   (1, 32, 2, False),
-                  (1, 64, 6, False), (256, 64, 6, False))  # the image mux
+                  (1, 64, 6, False), (256, 64, 6, False),  # the image mux
+                  (256, 64, 2, False))        # the trained pair mux
 MUX_SERVED = MUX_HEAD_CASES[0]
 # the probe's graphs against its eager functions, in this order, so a
 # second shape follows a first: (B, S)
@@ -2609,11 +2649,13 @@ def serve_image_scheduler(dev, im, server) -> dict:
     return runs
 
 
-def time_mux_meta(dev, im, server) -> list:
+def time_mux_meta(dev, mux, images, server, sizes=(1, SERVE_B)) -> list:
     """K2's meta form at its served shapes, on the served operands (the
     backbone's meta-features of the first images, the mux's v and
-    cost_rel ** alpha, ``normalize=False``): B = 1 (the scheduler's
-    probe) and B = ``SERVE_B`` (``serve``), M = 64, N = 6.  Eager
+    cost_rel ** alpha, ``normalize=False``), at each batch of ``sizes``:
+    in phase 7 B = 1 (the scheduler's probe) and B = ``SERVE_B``
+    (``serve``), M = 64, N = 6; in phase 8 the trained pair mux's
+    B = ``SERVE_B``, M = 64, N = 2.  Eager
     (``time_cuda``), as a CUDA graph (``time_cuda_graph``), host
     microseconds a call, and the plain version eager, beside the bound:
     meta, v and cost read once and the weights written once over HBM
@@ -2622,12 +2664,12 @@ def time_mux_meta(dev, im, server) -> list:
     from repro_torch.core.multiplexer import backbone_forward
     from repro_torch.kernels.mux_score import mux_score_cuda
     from repro_torch.kernels.ref import mux_score_ref
-    v, cost = im["mux"]["v"], server.cost_pow
+    v, cost = mux["v"], server.cost_pow
     rows = []
-    for b in (1, SERVE_B):
-        meta = backbone_forward(im["mux"]["backbone"],
-                                torch.from_numpy(im["images"][:b]).to(dev))
-        m_dim, n = meta.shape[1], v.shape[0]
+    for b in sizes:
+        meta = backbone_forward(mux["backbone"],
+                                torch.as_tensor(images[:b], device=dev))
+        (b, m_dim), n = meta.shape, v.shape[0]
 
         def kern(i):
             return mux_score_cuda(meta, v, cost, normalize=False)
@@ -2681,7 +2723,8 @@ def image_mux_phase(dev) -> tuple:
         check(sum(c > 0 for c in out["serve"]["threshold"]["called_fraction"])
               >= 2, "image serve threshold: fewer than two models get traffic")
         out["scheduler"] = serve_image_scheduler(dev, im, thresholded)
-        out["meta_form"] = time_mux_meta(dev, im, argmax)
+        out["meta_form"] = time_mux_meta(dev, im["mux"], im["images"],
+                                         argmax)
         out["meta_launches"] = {
             "serve": sum(sum(r["k2_launches"])
                          for r in out["serve"].values()),
@@ -2723,6 +2766,478 @@ def profile_serve(dev, server, x, wall_ms: float) -> dict:
     log(f"image serve graphed step profile: device busy {busy:.4f} ms, "
         f"{out['launches']:g} launches a step, serve wall {wall_ms:.3f} ms, "
         f"idle {out['idle_share']:.3f}; top {out['top']}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: the paper's Algorithm 1 and its tables on the card
+# ---------------------------------------------------------------------------
+
+PAPER_LOSS_RTOL = 1e-5      # losses, card vs CPU, both fp32
+PAPER_GNORM_RTOL = 5e-5     # the gradients' global norm, card vs CPU
+# the gradients, card vs CPU: ||difference|| / ||gradient||.  The zoo's
+# six CNNs have so many ReLU and max-pool branches that each side's fp32
+# rounding flips some, and a flipped branch moves a gradient entry by a
+# whole term, TF32 or not; the mux steps train only the 4-conv backbone
+# (the zoo frozen), where both sides agree to fp32 rounding.  So for the
+# zoo step this limit does not tell TF32 apart (on an H100 TF32 in the
+# backward reads 5.9e-4 of the norm, the sound step 2.2e-4): its one TF32
+# separator is PAPER_GNORM_RTOL, the sound step's norm 5.4e-6 off and
+# TF32's 3.7e-4 off
+PAPER_GRAD_L2 = {"zoo_train_step": 1e-3, "mux_train_step ensemble": 1e-5,
+                 "mux_train_step offload": 1e-5}
+PAPER_CROSS_B = 64          # the card-vs-CPU steps' batch
+PAPER_WARMUP = 10           # steps left out of the median ms a step
+NEAR_TIE = 1e-5             # top-two mux weights / class probabilities
+NEAR_TIE_SHARE = 0.01       # the most near-tie rows of the eval set allowed
+
+
+def _by_path(t) -> dict:
+    from repro_torch import convert, tree
+    return dict(tree.paths(convert.to_numpy(t)))
+
+
+def _l2(a: dict, b: dict) -> float:
+    return float(np.sqrt(sum(np.sum(np.square(a[k].astype(np.float64)
+                                              - b[k])) for k in b)))
+
+
+def _step_runs(cfg, opt_cfg):
+    """The three Algorithm 1 steps the card is held to the CPU on, each
+    a function of the device: ((loss function, params, its arguments),
+    (new params, new AdamW state, step metrics)) from one seeded set of
+    CPU params and one batch of ``PAPER_CROSS_B`` images, copied to the
+    device."""
+    import torch
+    from repro_torch.core import mux_train
+    from repro_torch.data.synthetic import image_dataset, make_templates
+    from repro_torch.optim import adamw
+    cpu = torch.device("cpu")
+    gen = torch.Generator().manual_seed(SEED + 40)
+    templates = make_templates(gen, num_classes=cfg.num_classes,
+                               image_size=cfg.image_size, device=cpu)
+    batch = image_dataset(gen, templates, num_samples=PAPER_CROSS_B,
+                          batch=PAPER_CROSS_B)[0]
+    zoo = mux_train.init_zoo_state(gen, cfg, device=cpu)
+    pair = (cfg.mobile_model, cfg.cloud_model)
+    muxes = {"ensemble": (tuple(cfg.zoo),
+                          mux_train.init_mux_state(gen, cfg, device=cpu)),
+             "offload": (pair, mux_train.init_mux_state(gen, cfg, names=pair,
+                                                         device=cpu))}
+
+    def zoo_step(d):
+        st, b = _to_device(zoo, d), _to_device(batch, d)
+        return ((mux_train.zoo_loss, st, (b, cfg)),
+                mux_train.zoo_train_step(st, adamw.init(opt_cfg, st), b, cfg,
+                                         opt_cfg))
+
+    def mux_step(objective):
+        names, mux = muxes[objective]
+
+        def run(d):
+            tr = _to_device({k: v for k, v in mux.items() if k != "cost_rel"},
+                            d)
+            cr, z = mux["cost_rel"].to(d), _to_device(zoo, d)
+            args = (cr, z, _to_device(batch, d), cfg, names, objective)
+            return ((mux_train.mux_loss, tr, args),
+                    mux_train.mux_train_step(tr, cr, adamw.init(opt_cfg, tr),
+                                             z, args[2], cfg, opt_cfg, names,
+                                             objective))
+        return run
+    return {"zoo_train_step": zoo_step,
+            "mux_train_step ensemble": mux_step("ensemble"),
+            "mux_train_step offload": mux_step("offload")}
+
+
+def _grads_tf32_backward(loss_fn, params, args):
+    """The gradients as they were before the fp32 scope covered the
+    backward: the forward holds TF32 off for its convolutions, the
+    backward runs under the process's switch."""
+    import torch
+    from repro_torch import tree
+    live = [x.detach().requires_grad_() for x in tree.leaves(params)]
+    loss, _ = loss_fn(tree.unflatten(params, live), *args)
+    grads = torch.autograd.grad(loss, live, allow_unused=True)
+    return tree.unflatten(params, [torch.zeros_like(x) if g is None else g
+                                   for x, g in zip(live, grads)])
+
+
+def _tf32_in_backward(fn) -> tuple:
+    """``fn()``'s result and the values of cuDNN's TF32 switch read each
+    time a backward unpacked a tensor saved by the forward (every
+    convolution's backward does, on autograd's device thread)."""
+    import torch
+    seen = set()
+
+    def unpack(t):
+        seen.add(torch.backends.cudnn.allow_tf32)
+        return t
+    with torch.autograd.graph.saved_tensors_hooks(lambda t: t, unpack):
+        out = fn()
+    return out, seen
+
+
+def paper_steps_against_cpu(dev) -> dict:
+    """One ``zoo_train_step`` and one ``mux_train_step`` per objective at
+    ``paper_mux.config()``'s widths (six CNNs, 32x32), card against CPU
+    on the same params and batch, with cuDNN's TF32 switch on globally.
+    The switch read inside every backward of ``loss_and_grads`` must be
+    off (and on in the same backward run outside the port's scope, which
+    shows the probe sees it).  Loss within ``PAPER_LOSS_RTOL``, the
+    gradients' global norm within ``PAPER_GNORM_RTOL`` and the gradients
+    within ``PAPER_GRAD_L2``; the first moment within (1 - b1) E and every
+    updated param within 1e-6 + lr * min(2, 4 E / sqrt(v_hat)) (E: the
+    clipped gradients' largest difference; an entry whose gradient does
+    not stand clear of E may flip Adam's ~lr * sign(g) step).  The
+    gradients with TF32 left on in the backward must miss the norm's or
+    the gradients' tolerance, so the check can see TF32; their figures
+    are logged beside the port's."""
+    import torch
+    from repro_torch.configs import paper_mux
+    from repro_torch.core import mux_train
+    cfg = paper_mux.config()
+    opt_cfg = mux_train.opt_config(cfg, cfg.zoo_steps)
+    check(torch.backends.cudnn.allow_tf32,
+          "phase 8 must run with cuDNN's TF32 switch on")
+    out = {}
+    for tag, run in _step_runs(cfg, opt_cfg).items():
+        (fn, p_card, args), (new_c, opt_c, m_c) = run(dev)
+        (_, p_cpu, args_cpu), (new_w, opt_w, m_w) = run(torch.device("cpu"))
+        (loss_c, _, g_c), seen = _tf32_in_backward(
+            lambda: mux_train.loss_and_grads(fn, p_card, *args))
+        g_tf32, seen_tf32 = _tf32_in_backward(
+            lambda: _grads_tf32_backward(fn, p_card, args))
+        _, _, g_w = mux_train.loss_and_grads(fn, p_cpu, *args_cpu)
+        check(torch.backends.cudnn.allow_tf32,
+              f"{tag}: the step left cuDNN's TF32 switch off")
+        gc, gt, gw = _by_path(g_c), _by_path(g_tf32), _by_path(g_w)
+        norm = float(np.sqrt(sum(np.sum(np.square(v.astype(np.float64)))
+                                 for v in gw.values())))
+
+        def norm_err(g):
+            n = np.sqrt(sum(np.sum(np.square(v.astype(np.float64)))
+                            for v in g.values()))
+            return abs(float(n) - norm) / norm
+        err = max(float(np.abs(gc[k] - v).max()) for k, v in gw.items())
+        scale = min(1.0, opt_cfg.clip_norm / float(m_w["grad_norm"]))
+        e = max(err * scale, 1e-9)
+        lr = float(m_w["lr"])
+        mu_c, mu_w = _by_path(opt_c.mu), _by_path(opt_w.mu)
+        nu_w = _by_path(opt_w.nu)
+        pc, pw = _by_path(new_c), _by_path(new_w)
+        worst_mu = max(float(np.abs(mu_c[k] - v).max())
+                       for k, v in mu_w.items())
+        over, worst_p = 0.0, 0.0
+        for k, want in pw.items():
+            s = np.sqrt(nu_w[k] / (1 - opt_cfg.b2))
+            bound = 1e-6 + lr * np.minimum(2.0, 4.0 * e / np.maximum(s, 1e-30))
+            diff = np.abs(pc[k] - want)
+            worst_p = max(worst_p, float(diff.max()))
+            over = max(over, float((diff / bound).max()))
+        row = {"loss_rel_err": abs(float(m_c["loss"]) - float(m_w["loss"]))
+               / abs(float(m_w["loss"])),
+               "grad_norm_rel_err": abs(float(m_c["grad_norm"])
+                                        - float(m_w["grad_norm"]))
+               / float(m_w["grad_norm"]),
+               "grads_l2_rel_err": _l2(gc, gw) / norm,
+               "grads_max_err_of_norm": err / norm,
+               "tf32_in_backward_seen": sorted(seen),
+               "tf32_backward": {"grads_l2_rel_err": _l2(gt, gw) / norm,
+                                 "grad_norm_rel_err": norm_err(gt),
+                                 "tf32_in_backward_seen": sorted(seen_tf32)},
+               "mu_err": worst_mu, "param_err": worst_p,
+               "param_err_over_bound": over, "loss": float(loss_c)}
+        log(f"phase 8 {tag} on the card vs CPU (B={PAPER_CROSS_B}, TF32 on "
+            f"globally): {json.dumps(row)}")
+        check(seen == {False}, f"{tag}: cuDNN's TF32 switch read {seen} in "
+              f"the backward")
+        check(seen_tf32 == {True}, f"{tag}: the probe read {seen_tf32} in a "
+              f"backward run under the global switch")
+        check(row["loss_rel_err"] <= PAPER_LOSS_RTOL
+              and abs(float(loss_c) - float(m_w["loss"]))
+              <= PAPER_LOSS_RTOL * abs(float(m_w["loss"])),
+              f"{tag}: loss card vs CPU {row['loss_rel_err']:.3e}")
+        check(row["grad_norm_rel_err"] <= PAPER_GNORM_RTOL
+              and norm_err(gc) <= PAPER_GNORM_RTOL,
+              f"{tag}: gradient norm card vs CPU "
+              f"{row['grad_norm_rel_err']:.3e}")
+        check(row["grads_l2_rel_err"] <= PAPER_GRAD_L2[tag],
+              f"{tag}: gradients card vs CPU {row['grads_l2_rel_err']:.3e} of "
+              f"their norm")
+        tf = row["tf32_backward"]
+        check(tf["grad_norm_rel_err"] > PAPER_GNORM_RTOL
+              or tf["grads_l2_rel_err"] > PAPER_GRAD_L2[tag],
+              f"{tag}: TF32 in the backward passes the fp32 tolerances "
+              f"({tf}), so they cannot tell it apart")
+        check(worst_mu <= (1 - opt_cfg.b1) * e * 1.01 + 1e-9,
+              f"{tag}: first moment card vs CPU {worst_mu:.3e}")
+        check(over <= 1.0, f"{tag}: updated params over their bound "
+              f"({over:.3f} x)")
+        out[tag] = row
+    return out
+
+
+class StepTimer:
+    """``get_state``'s ``on_step`` hook: a CUDA event after each training
+    step is enqueued, and at a stage's last step a synchronise and the
+    host clock (a stage's wall runs from the previous stage's end, or
+    from the timer's start, so a zoo stage's wall includes drawing the
+    data on the card and initialising)."""
+
+    def __init__(self, steps: dict):
+        self.steps, self.events, self.walls, self.losses = steps, {}, {}, {}
+        self.t = time.perf_counter()
+
+    def __call__(self, stage, step, metrics):
+        import torch
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.events.setdefault(stage, []).append(ev)
+        if step == 1:
+            self.losses[stage] = [metrics["loss"]]
+        if step == self.steps[stage]:
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            self.walls[stage], self.t = now - self.t, now
+            self.losses[stage].append(metrics["loss"])
+
+    def summary(self) -> dict:
+        out = {}
+        for stage, evs in self.events.items():
+            ms = [a.elapsed_time(b) for a, b in zip(evs[PAPER_WARMUP:],
+                                                    evs[PAPER_WARMUP + 1:])]
+            out[stage] = {"steps": len(evs), "wall_s": self.walls[stage],
+                          "median_step_ms": float(np.median(ms)),
+                          "p10_step_ms": float(np.percentile(ms, 10)),
+                          "p90_step_ms": float(np.percentile(ms, 90)),
+                          "loss_first": float(self.losses[stage][0]),
+                          "loss_last": float(self.losses[stage][-1])}
+        return out
+
+
+def serve_trained(dev, state, t1: dict, t2: dict) -> dict:
+    """The trained muxes served through ``MuxServer.serve`` (argmax, K2's
+    meta form as the probe's head) on the eval images in batches of
+    ``batch_size``, every row kept (capacity = B: ``capacity_factor`` =
+    the number of models): the six-model mux against Table II, the pair
+    mux against Table I.  Checks: each served assignment equals the
+    evaluation's (argmax of ``mux_forward``'s weights; the pair's
+    w_mobile >= 0.5) except rows whose top two weights lie within
+    ``NEAR_TIE`` (at most ``NEAR_TIE_SHARE`` of the rows); on the
+    agreeing rows, each served prediction's correctness equals the
+    evaluation's (but where the served model's top two class
+    probabilities lie within ``NEAR_TIE``), so the served accuracy there
+    equals Table II's acc_single / Table I's hybrid accuracy there, and
+    the local fraction Table I's up to the near-tie rows; K2 launched
+    once a ``serve`` and once more on the first (the graph's warm-up).
+    Then K2's meta form at the pair's served shape (B = ``SERVE_B``,
+    M = 64, N = 2) on its trained operands, against ``mux_score_ref`` and
+    timed (``time_mux_meta``), under ``meta_form``."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import cnn
+    from repro_torch.paper import common
+    from repro_torch.serving.mux_server import MuxServer, MuxServerConfig
+    cfg = state["cfg"]
+    costs = cfg.costs()
+    zoo = state["zoo_state"]["zoo"]
+    ev = common.eval_zoo(state)
+    rows = len(ev["labels"])
+    r = np.arange(rows)
+    pair = (cfg.mobile_model, cfg.cloud_model)
+    w_pair = ev["weights_pair"]
+    cases = (("mux_all", tuple(cfg.zoo), ev["weights_all"],
+              ev["weights_all"].argmax(-1), t2["acc_single"]),
+             ("mux_pair", pair, w_pair,
+              np.where(w_pair[:, 0] >= cfg.offload_threshold, 0, 1),
+              t1["acc_hybrid"]))
+    out = {}
+    for key, names, w, offline, table_acc in cases:
+        fns = [lambda xs, n=n: cnn.cnn_forward(
+            zoo[n], xs, convs_per_stage=cnn.ZOO_SPECS[n]["convs_per_stage"]
+        )[0] for n in names]
+        server = MuxServer(state[key], [costs[n] for n in names],
+                           MuxServerConfig(capacity_factor=float(len(names))),
+                           device=dev, model_fns=fns)
+        before = ops.launches["mux_score"]
+        t0 = time.perf_counter()
+        res = [server.serve(b["image"]) for b in state["eval_b"]]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k2 = ops.launches["mux_score"] - before
+        assign = torch.cat([x["assign"] for x in res]).cpu().numpy()
+        pred = torch.cat([x["output"].argmax(-1) for x in res]).cpu().numpy()
+        kept = torch.cat([x["kept"] for x in res]).cpu().numpy()
+        top = np.sort(w, axis=-1)
+        tie = top[:, -1] - top[:, -2] <= NEAR_TIE
+        agree = assign == offline
+        model = np.asarray([cfg.zoo.index(n) for n in names])[assign]
+        served_ok = pred == ev["labels"]
+        offline_ok = ev["correct"][model, r]
+        ptop = np.sort(ev["probs"][model, r], axis=-1)
+        ptie = ptop[:, -1] - ptop[:, -2] <= NEAR_TIE
+        differ = agree & (served_ok != offline_ok)
+        row = {"rows": rows, "batches": len(res), "k2_launches": k2,
+               "serve_wall_s": wall, "near_tie_rows": int(tie.sum()),
+               "disagreeing_rows": int((~agree).sum()),
+               "prob_tie_rows_differing": int(differ.sum()),
+               "acc_served_agreeing": float(served_ok[agree].mean()),
+               "acc_offline_agreeing": float(offline_ok[agree].mean()),
+               "acc_table": table_acc, "acc_served_all":
+                   float(served_ok.mean()),
+               "called": np.bincount(assign, minlength=len(names)).tolist()}
+        if key == "mux_pair":
+            row.update(local_served=float((assign == 0).mean()),
+                       local_table=t1["local_fraction"])
+        log(f"phase 8 trained {key} served: {json.dumps(row)}")
+        check(kept.all(), f"{key}: {int((~kept).sum())} rows dropped")
+        check((agree | tie).all(), f"{key}: {int((~agree & ~tie).sum())} "
+              f"served assignments differ off a near-tie")
+        check(tie.sum() <= NEAR_TIE_SHARE * rows,
+              f"{key}: {int(tie.sum())} near-tie rows of {rows}")
+        check(not (differ & ~ptie).any(), f"{key}: served predictions "
+              f"differ from the evaluation's on {int((differ & ~ptie).sum())}"
+              f" rows off a near-tie")
+        loose = int((~agree).sum() + differ.sum())
+        check(abs(row["acc_served_all"] - table_acc) * rows <= loose + 1e-6,
+              f"{key}: served accuracy {row['acc_served_all']} vs the "
+              f"table's {table_acc} beyond {loose} near-tie rows")
+        if key == "mux_pair":
+            check(abs(row["local_served"] - row["local_table"]) * rows
+                  <= int((~agree).sum()) + 1e-6,
+                  f"{key}: local fraction {row['local_served']} vs "
+                  f"{row['local_table']}")
+        check(k2 == len(res) + 1, f"{key}: K2 launched {k2} times in "
+              f"{len(res)} serves")
+        if key == "mux_pair":
+            out["meta_form"] = time_mux_meta(
+                dev, state[key], state["eval_b"][0]["image"], server,
+                (SERVE_B,))
+        out[key] = row
+    out["k2_launches"] = sum(out[k]["k2_launches"] for k in ("mux_all",
+                                                             "mux_pair"))
+    return out
+
+
+def paper_phase(dev) -> tuple:
+    """Phase 8 (see the module docstring).  cuDNN's TF32 switch is on for
+    the phase.  Returns (the phase's figures, the trained state)."""
+    import torch
+    from repro_torch.paper import (common, fig1_expertise, fig6_separation,
+                                   table1_mobile_cloud, table2_cloud_api)
+    t0 = time.perf_counter()
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        out = {"card_vs_cpu": paper_steps_against_cpu(dev)}
+        cfg = common.bench_config("full")
+        timer = StepTimer({"zoo_cnt": cfg.zoo_steps,
+                           "zoo_nocnt": cfg.zoo_steps,
+                           "mux_all": cfg.mux_steps,
+                           "mux_pair": cfg.mux_steps})
+        state = common.get_state(scale="full", device=dev, cache_dir=None,
+                                 verbose=False, on_step=timer)
+        ablation = common.get_state(contrastive=False, scale="full",
+                                    device=dev, cache_dir=None,
+                                    verbose=False, on_step=timer)
+        out["training"] = timer.summary()
+        for stage, row in out["training"].items():
+            log(f"phase 8 training {stage}: {json.dumps(row)}")
+        check(all(r["steps"] == timer.steps[s]
+                  for s, r in out["training"].items())
+              and len(out["training"]) == 4,
+              f"phase 8: training stages {list(out['training'])}")
+        f1 = fig1_expertise.run(state)
+        t1 = table1_mobile_cloud.run(state)
+        t2 = table2_cloud_api.run(state)
+        f6 = fig6_separation.run(state, ablation=ablation)
+        (pull_c, push_c), (pull_a, push_a) = f6["contrastive"], f6["ablation"]
+        out["tables"] = {
+            "table1": {"rows": {k: dataclasses.asdict(v)
+                                for k, v in t1["rows"].items()},
+                       **{k: t1[k] for k in ("acc_hybrid", "acc_mobile",
+                                             "acc_cloud", "local_fraction",
+                                             "tnr")}},
+            "table2": {k: t2[k] for k in ("saving_factor", "acc_single",
+                                          "acc_ensemble", "best_single_acc",
+                                          "flops_single")}
+            | {"called": t2["called"].tolist(),
+               "acc_oracle": float(t2["oracle"]["acc_oracle"]),
+               "flops_oracle": float(t2["oracle"]["flops_oracle"])},
+            "fig1": {"matrix": f1["matrix"].tolist(),
+                     "small_vs_big_pct": float(f1["small_vs_big_pct"])},
+            "fig6": f6}
+        out["headline"] = {
+            "mobile_gain_pp": (t1["acc_hybrid"] - t1["acc_mobile"]) * 100,
+            "saving_factor": t2["saving_factor"],
+            "separation_ratio_contrastive": push_c / max(pull_c, 1e-6),
+            "separation_ratio_ablation": push_a / max(pull_a, 1e-6)}
+        log(f"phase 8 headline (logged, not gated; the paper claims +8.52% "
+            f"mobile accuracy and a 2.85x saving on ImageNet): "
+            f"{json.dumps(out['headline'])}")
+        largest = max(cfg.costs().values())
+        check(t2["acc_single"] >= t2["best_single_acc"] - 0.05,
+              f"hybrid-single accuracy {t2['acc_single']:.4f} below the best "
+              f"single model's {t2['best_single_acc']:.4f} - 0.05")
+        check(t2["flops_single"] <= largest + 1e-6,
+              f"hybrid-single FLOPs {t2['flops_single']:.4g} above the "
+              f"largest model's {largest:.4g}")
+        check(push_c > pull_c, f"contrastive separation: push {push_c:.4f} "
+              f"<= pull {pull_c:.4f}")
+        out["served"] = serve_trained(dev, state, t1, t2)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"phase 8, the paper's results: {out['wall_s']:.1f} s wall")
+    return out, state
+
+
+def profile_zoo_step(dev, state, median_ms: float, steps: int = 5) -> dict:
+    """Device busy ms and launches of one ``zoo_train_step`` (the trained
+    zoo, a fresh AdamW state, the first training batch) from
+    ``torch.profiler`` over ``steps`` steps after two warm-up steps,
+    against the timed training's median ms a step: the idle share.  The
+    steps run with cuDNN's TF32 switch on, and no kernel whose name says
+    TF32 may run in them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import mux_train
+    from repro_torch.optim import adamw
+    cfg = state["cfg"]
+    opt_cfg = mux_train.opt_config(cfg, cfg.zoo_steps)
+    st, opt = state["zoo_state"], adamw.init(opt_cfg, state["zoo_state"])
+    batch = state["train_b"][0]
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        for _ in range(2):
+            st, opt, _ = mux_train.zoo_train_step(st, opt, batch, cfg,
+                                                  opt_cfg)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                st, opt, _ = mux_train.zoo_train_step(st, opt, batch, cfg,
+                                                      opt_cfg)
+            torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    from torch.autograd import DeviceType
+    tf32_kernels = sorted({e.key for e in prof.key_averages()
+                           if e.device_type != DeviceType.CPU
+                           and "tf32" in e.key.lower()})
+    check(not tf32_kernels, f"zoo_train_step launched TF32 kernels under "
+          f"the global switch: {tf32_kernels}")
+    rows = _device_rows(prof)
+    busy = sum(r[0] for r in rows) / steps
+    out = {"device_busy_ms": busy,
+           "launches": sum(r[1] for r in rows) / steps,
+           "median_step_ms": median_ms, "idle_share": 1.0 - busy / median_ms,
+           "top": [[round(ms / steps, 4), c // steps, k]
+                   for ms, c, k in rows[:10]]}
+    log(f"zoo_train_step profile: device busy {busy:.3f} ms, "
+        f"{out['launches']:g} launches a step, median step {median_ms:.3f} "
+        f"ms, idle {out['idle_share']:.3f}; top {out['top']}")
     return out
 
 
@@ -2859,14 +3374,19 @@ def main(argv) -> int:
           f"finite")
     # phase 7: the paper's image mux (serve and MuxScheduler)
     image, image_srv, image_x = image_mux_phase(dev)
+    # phase 8: Algorithm 1 trained, the paper's tables, the trained mux served
+    paper, paper_state = paper_phase(dev)
     # last: its torch.profiler window leaves the host slower at every later
     # launch, which would show in the served phases' decode rates
     probe["by_path"] = time_probe(dev, probe_srv, probe_tokens)
     image["serve_profile"] = profile_serve(
         dev, image_srv, image_x,
         image["serve"]["argmax"]["serve_wall_ms_median"])
+    paper["zoo_step_profile"] = profile_zoo_step(
+        dev, paper_state, paper["training"]["zoo_cnt"]["median_step_ms"])
 
     launches = run["launches"]
+    meta_form = image["meta_form"] + paper["served"]["meta_form"]
     kernels = [
         {"name": "paged_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/paged_attention.cu",
@@ -2879,13 +3399,14 @@ def main(argv) -> int:
          "source": "src/repro_torch/csrc/mux_score.cu",
          "replaces": "src/repro/kernels/mux_score.py:47",
          "launches": launches["mux_score"],
-         "meta_launches": image["meta_launches"],
-         "max_abs_err": max(k2_err, *(r["max_abs_err"]
-                                      for r in image["meta_form"])),
+         "meta_launches": {**image["meta_launches"],
+                           "paper": paper["served"]["k2_launches"]},
+         "max_abs_err": max(k2_err, *(r["max_abs_err"] for r in
+                                      meta_form)),
          "ms": k2["ms"], "graph_ms": k2["graph_ms"],
          "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
          "bound_by": k2["bound_by"], "library_ms": None,
-         "meta_form": image["meta_form"]},
+         "meta_form": meta_form},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention_sm90.cu",
          "replaces": "src/repro/kernels/flash_attention.py:157",
@@ -2906,7 +3427,8 @@ def main(argv) -> int:
     # of speed; K2's ms / bound are its head form's at the served probe
     # shape (graph_ms: the same as a CUDA graph, as the probe runs it);
     # its meta form's launches on phase 7's image path (serve, scheduler)
-    # and its times at the served shapes are meta_launches / meta_form
+    # and phase 8's trained muxes (paper), and its times at the served
+    # shapes, are meta_launches / meta_form
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"paged_attention_ptxas": k1_res,
                       "paged_attention_by_shape": k1["shapes"]}), flush=True)
@@ -2940,6 +3462,7 @@ def main(argv) -> int:
     print(json.dumps({"probe": {"mux_score_ptxas": k2_res, "mux_score": k2,
                                 **probe}}), flush=True)
     print(json.dumps({"image_mux": image}), flush=True)
+    print(json.dumps({"paper": paper}), flush=True)
     return finish()
 
 

@@ -1,13 +1,14 @@
 """Carry weights and paged-cache pools between the JAX package and the
 port, through numpy.
 
-Both directions work on pytrees of nested dicts and lists, so one pair
-of functions covers transformer params (``tf.init_params``), the
-token-probe mux params (``init_mux``) and paged-cache pools
-(``tf.init_caches(num_pages=, page_size=)``).  Layout: the port KEEPS
-the JAX package's leading group axis — per-pattern-position layer
-params and cache slabs are ``(G, ...)`` stacks in both packages — so a
-leaf converts with its shape unchanged and the forward pass indexes
+Both directions work on pytrees of nested dicts, lists, tuples and
+NamedTuples (``repro_torch.tree``), so one pair of functions covers
+transformer params (``tf.init_params``), the mux params (``init_mux``),
+the image zoo's training state, AdamW's ``AdamWState(step, mu, nu)``
+and paged-cache pools (``tf.init_caches(num_pages=, page_size=)``).
+Layout: the port KEEPS the JAX package's leading group axis —
+per-pattern-position layer params and cache slabs are ``(G, ...)``
+stacks in both packages — so a leaf converts with its shape unchanged and the forward pass indexes
 group ``g`` as a view.
 
 Leaves on the JAX side arrive as numpy arrays (``np.asarray`` of a
@@ -22,6 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.tree import map_tree
 
 
 def _leaf_to_torch(x, device: torch.device) -> torch.Tensor:
@@ -43,20 +45,10 @@ def to_torch(tree: Any, device: DeviceLike = None) -> Any:
     """numpy (or array-like) pytree -> the same pytree of tensors on
     ``device`` (``cuda`` unless given).  Shapes and dtypes carry over."""
     dev = resolve_device(device)
-    return _map(tree, lambda x: _leaf_to_torch(x, dev))
+    return map_tree(lambda x: _leaf_to_torch(x, dev), tree)
 
 
 def to_numpy(tree: Any) -> Any:
     """Tensor pytree -> numpy pytree (bf16 leaves widen to float32), for
     comparing the port's params or pools with the JAX package's."""
-    return _map(tree, _leaf_to_numpy)
-
-
-def _map(tree: Any, fn) -> Any:
-    if isinstance(tree, dict):
-        return {k: _map(v, fn) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_map(v, fn) for v in tree)
-    if tree is None:
-        return None
-    return fn(tree)
+    return map_tree(_leaf_to_numpy, tree)

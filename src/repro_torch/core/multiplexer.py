@@ -3,7 +3,7 @@ head.
 
     w_i(x) = softmax_i( sum_j v_ij m_j(x) / c_i )        (Eq. 5-6)
 
-Port of ``repro.core.multiplexer``'s serving side.  The backbone
+Port of ``repro.core.multiplexer``.  The backbone
 producing the meta-features m(x) is modality-specific:
 
 * images -> the paper's 4-conv CNN (``repro_torch.models.cnn``,
@@ -12,6 +12,10 @@ producing the meta-features m(x) is modality-specific:
   into its trunk (tokens -> last hidden states) and its head (mean
   pool, out projection, tanh), which the token server fuses with
   Eq. 5-6 into one kernel (``ops.mux_head``).
+
+Distillation (Eq. 8, ``distill_loss``): each model i gets a linear
+read-out r_i of the meta-features that is pulled toward that model's
+projected embedding e_i (``repro_torch.core.contrastive``'s distance).
 
 Params are plain dicts of tensors with the JAX package's tree
 (``repro_torch.convert`` carries them across).
@@ -24,7 +28,8 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.core.contrastive import cosine_distance
+from repro_torch.device import DeviceLike, generator_on, resolve_device
 from repro_torch.models import cnn as cnn_mod
 from repro_torch.models.layers import dense_init, truncated_normal
 
@@ -46,8 +51,7 @@ def init_token_backbone(generator: Optional[torch.Generator] = None, *,
                         device: DeviceLike = None) -> Params:
     """Tiny transformer probe over the prompt prefix (fp32 params)."""
     dev = resolve_device(device)
-    if generator is None:
-        generator = torch.Generator(device=dev).manual_seed(0)
+    generator = generator_on(generator, dev)
 
     def dense(i, o):
         return dense_init(generator, i, o, device=dev)
@@ -110,8 +114,7 @@ def init_mux(generator: Optional[torch.Generator] = None, *,
     """costs: FLOPs per inference for each zoo model (the paper's c_i),
     kept relative to the cheapest."""
     dev = resolve_device(device)
-    if generator is None:
-        generator = torch.Generator(device=dev).manual_seed(0)
+    generator = generator_on(generator, dev)
     c = torch.tensor([costs[m] for m in model_names], dtype=torch.float32,
                      device=dev)
     return {
@@ -133,3 +136,18 @@ def mux_forward(params: Params, x, *, cost_exponent: float = 1.0,
     logits = meta @ params["v"].T                          # (B, N)
     cost = params["cost_rel"] ** cost_exponent
     return torch.softmax(logits / cost[None, :], dim=-1), meta
+
+
+def distill_loss(params: Params, meta: torch.Tensor,
+                 projected: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Eq. 8: pull each read-out r_i(m) toward e_i (no gradient into
+    e_i)."""
+    names = list(params["distill"])
+    total = torch.zeros((), dtype=torch.float32, device=meta.device)
+    for name in names:
+        r = meta @ params["distill"][name]
+        r = r / torch.clamp(torch.linalg.vector_norm(r, dim=-1, keepdim=True),
+                            min=1e-6)
+        e = projected[name].detach()
+        total = total + torch.mean(cosine_distance(r, e))
+    return total / len(names)

@@ -1,7 +1,7 @@
 """Device resolution shared by the port's entry points."""
 from __future__ import annotations
 
-from typing import Union
+from typing import Optional, Union
 
 import torch
 
@@ -20,3 +20,11 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             "run the port's plain PyTorch path on the CPU")
     return torch.device("cuda")
 
+
+def generator_on(generator: Optional[torch.Generator],
+                 dev: torch.device) -> torch.Generator:
+    """``generator``, or a fresh one on ``dev`` seeded 0: an initialiser
+    given none draws reproducibly."""
+    if generator is not None:
+        return generator
+    return torch.Generator(device=dev).manual_seed(0)

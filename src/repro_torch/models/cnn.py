@@ -36,7 +36,7 @@ from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.device import DeviceLike, generator_on, resolve_device
 from repro_torch.models.layers import truncated_normal
 
 Params = Dict[str, Any]
@@ -84,12 +84,6 @@ def _dense_init(generator, cin: int, cout: int, *, dtype, device) -> Params:
             "b": torch.zeros((cout,), dtype=dtype, device=device)}
 
 
-def _generator(generator: Optional[torch.Generator],
-               dev: torch.device) -> torch.Generator:
-    return (generator if generator is not None
-            else torch.Generator(device=dev).manual_seed(0))
-
-
 def _nchw(x, like: torch.Tensor) -> torch.Tensor:
     """NHWC images on ``like``'s device -> an NCHW view in channels_last
     memory.  A tensor already there is used in place (no host transfer:
@@ -116,7 +110,7 @@ def init_cnn(generator: Optional[torch.Generator] = None, *,
     """One zoo CNN: ``convs_per_stage`` 3x3 convs per width, then the
     embedding projection and the classifier."""
     dev = resolve_device(device)
-    gen = _generator(generator, dev)
+    gen = generator_on(generator, dev)
     stages: List[Params] = []
     cin = in_ch
     for w in widths:
@@ -183,7 +177,7 @@ def init_zoo(generator: Optional[torch.Generator] = None, *,
              device: DeviceLike = None) -> Dict[str, Params]:
     """Every named zoo CNN, drawn in order from one generator."""
     dev = resolve_device(device)
-    gen = _generator(generator, dev)
+    gen = generator_on(generator, dev)
     return {n: init_cnn(gen, num_classes=num_classes, in_ch=in_ch,
                         device=dev, **ZOO_SPECS[n])
             for n in names}
@@ -216,7 +210,7 @@ def init_mux_backbone(generator: Optional[torch.Generator] = None, *,
                       dtype=torch.float32,
                       device: DeviceLike = None) -> Params:
     dev = resolve_device(device)
-    gen = _generator(generator, dev)
+    gen = generator_on(generator, dev)
     stages = []
     cin = in_ch
     for w in MUX_WIDTHS:

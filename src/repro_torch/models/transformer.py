@@ -33,7 +33,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
-from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.device import DeviceLike, generator_on, resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as ssm
@@ -125,8 +125,7 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     _check_supported(cfg)
     dev = resolve_device(device)
     dt = dtype if dtype is not None else cfg.pdtype
-    if generator is None:
-        generator = torch.Generator(device=dev).manual_seed(0)
+    generator = generator_on(generator, dev)
     params: Params = {"embed": embed_init(generator, cfg.vocab_size,
                                           cfg.d_model, dt, device=dev)}
     blocks: Params = {}

@@ -41,8 +41,12 @@ def test_scan_sees_the_whole_port():
             "metrics.py", "batcher.py", "traffic.py", "tracer.py",
             "gauges.py", "mamba.py", "selective_scan.py", "serve.py",
             "falcon_mamba_7b.py", "graphs.py", "cnn.py", "paper_mux.py",
-            "admission.py"} <= names
+            "admission.py", "synthetic.py", "adamw.py", "contrastive.py",
+            "ensemble.py", "mux_train.py", "offload.py", "ckpt.py",
+            "tree.py", "table1_mobile_cloud.py", "table2_cloud_api.py",
+            "fig1_expertise.py", "fig6_separation.py", "__main__.py"} <= names
     assert (ROOT / "src" / "repro_torch" / "launch" / "serve.py") in FILES
+    assert (ROOT / "src" / "repro_torch" / "paper" / "common.py") in FILES
     assert not _forbidden("repro_torch.kernels")
     assert _forbidden("repro.kernels") and _forbidden("jax.numpy")
 
@@ -52,12 +56,16 @@ def test_entry_points_default_to_cuda_and_refuse_without_it(monkeypatch):
     CUDA present it raises instead of running on the CPU."""
     import torch
 
-    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs import get_smoke_config, paper_mux
+    from repro_torch.core import contrastive, mux_train
     from repro_torch.core.multiplexer import (init_image_backbone, init_mux,
                                               init_token_backbone)
     from repro_torch.launch import serve
     from repro_torch.models import cnn
     from repro_torch.models import transformer as tf
+    from repro_torch.data import synthetic
+    from repro_torch.paper import __main__ as paper_main
+    from repro_torch.paper import common
     from repro_torch.serving.engine import Engine, ServeConfig
     from repro_torch.serving.mux_server import MuxServer
     from repro_torch.serving.scheduler import MuxScheduler
@@ -94,6 +102,13 @@ def test_entry_points_default_to_cuda_and_refuse_without_it(monkeypatch):
         lambda: tf.init_caches(cfg, 1, 8),
         lambda: serve.main(["--smoke", "--tokens", "1"]),
         lambda: serve.build_engine("falcon-mamba-7b", smoke=True, max_len=8),
+        lambda: synthetic.make_templates(),
+        lambda: contrastive.init_projections(None, {"a": 4}, 2),
+        lambda: mux_train.init_zoo_state(None, paper_mux.config()),
+        lambda: mux_train.init_mux_state(None, paper_mux.config()),
+        lambda: mux_train.train_zoo(None, paper_mux.config(), [{}]),
+        lambda: common.get_state(scale="smoke", cache_dir=None),
+        lambda: paper_main.main(["--scale", "smoke"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
