@@ -12,7 +12,9 @@ Phases, each of which must pass:
    resource lines; for K3's tensor-core variant
    (``flash_attention_sm90.cu``) also its registers, dynamic shared
    memory and spills at hd = vd = 128, for K1 those of its bf16
-   split kernel and its combine kernel, for K4 those of every
+   split kernel (the MHA models' ``<bf16, 1, 256>`` and the MLA
+   latent's wide ``<bf16, 16, 512>``) and its combine kernel, for K4
+   those of every
    ``selective_scan_kernel`` instantiation (the served one: bf16 x,
    n = 16), and for K2 those of both forms of ``mux_score_kernel``;
    none may spill.
@@ -24,6 +26,12 @@ Phases, each of which must pass:
    edges fall inside splits) and a shape served in one split; the
    combined (B, M+1) operand against separate operands and a second
    call against the first (both bitwise), then at the served shapes;
+   and its absorbed-latent (MLA) form at minicpm3-4b's decode shape
+   (B = 8, H = 40 over one latent head, hd 288, V the leading 256
+   features of the same bf16 pages of 64, phase 3's mix of lengths
+   17-1024 with a length-0 row; and one 2048-token row): within 2e-2,
+   both bitwise checks, and a CUDA graph's replay bitwise equal to the
+   eager call;
    K2 ``mux_score`` in its head form (the probe's mean pool, out
    projection and tanh fused before Eq. 5-6, against ``mux_head_ref``)
    at the served probe shape (B=1, S=64, d=128, M=32, N=2), the sweep
@@ -45,7 +53,9 @@ Phases, each of which must pass:
    1: the output must be that key's V row exactly) and two shapes
    without the causal rule, each in fp32 (the SIMT variant) and bf16
    (the tensor-core variant), and the served prefill shapes (B=1, S=T
-   in {128, 448, 1024}, H=K in {16, 32}, hd 128, bf16); K4
+   in {128, 448, 1024}, H=K in {16, 32}, hd 128, bf16) and
+   minicpm3-4b's expanded MLA prefill (B=1, S=T in {128, 448, 1024},
+   H=K=40, hd 96, vd 64, bf16); K4
    ``selective_scan`` on the JAX sweep's three shapes, S and d_in off
    every tile, n in {1, 4, 5, 8, 12, 16, 64}, d_in that defeat 16-byte
    copies, S = 0, 1 and 3, 4096 steps (each with fp32 and bf16 x),
@@ -63,9 +73,12 @@ Phases, each of which must pass:
    kernel is timed at the served shape (CUDA events; input copies
    rotated so the 50 MB L2 never holds the next call's operands)
    beside its plain version and its bound; K1 at both served decode
-   shapes and one 2048-token row, also as a CUDA graph and with the
-   wrapper's host microseconds a call; K3 at every served prefill
-   shape, each beside ``scaled_dot_product_attention`` (timed only,
+   shapes and one 2048-token row, and its MLA form at B = 8 and at one
+   2048-token row (its bound from bytes and from bf16 FLOPs, and the
+   fp32 CUDA-core time of those FLOPs beside it), also as a CUDA graph
+   and with the wrapper's host microseconds a call; K3 at every served
+   prefill shape (the MLA ones too), each beside
+   ``scaled_dot_product_attention`` (timed only,
    never on the port's path; both also timed as CUDA graphs, an extra
    column), with the wrapper's host microseconds per call for each
    variant, and its SIMT variant on fp32 copies at the largest shape;
@@ -75,7 +88,9 @@ Phases, each of which must pass:
    plain ops eager and as a graph, and its meta form.
    A tiny fp32 model's prefill (through K3's SIMT variant) and
    teacher-forced decode (through K1) on the card are held against the
-   same model on the CPU, and so are a tiny fp32 falcon-mamba's
+   same model on the CPU, and so are a tiny fp32 MLA model's at
+   minicpm3-4b's attention widths (K1's latent form, fp32 pages, five
+   head tiles) and a tiny fp32 falcon-mamba's
    ``prefill`` (through K4) and teacher-forced ring decode.
 3. The direct served path at full width: olmo-1b and codeqwen1.5-7b at
    their published configs (depth uncut) with random bf16 weights
@@ -203,7 +218,32 @@ Phases, each of which must pass:
    each server's first, the graph's warm-up); K2's meta form at the
    pair's served shape (B=256, M=64, N=2), on its trained operands, is
    held against ``mux_score_ref`` and timed.
-9. Last, since a ``torch.profiler`` window slows the host's later
+9. MLA and an int8 pool served: minicpm3-4b at its published config
+   (62 layers, d_model 2560, 40 heads, kv_lora 256 + d_rope 32;
+   random bf16 weights; a bf16 latent pool) next to olmo-1b with
+   ``kv_cache_dtype="int8"`` (int8 pages, bf16 scales), 512 pages of 64
+   each, ``max_len`` 2048, decode batch 8, behind the token-probe mux of
+   ``build_zoo``; prompts from olmo-1b's 50,304-token vocabulary.
+   ``check_decode_graphs`` on both engines (each capture tallies one K1
+   launch a layer, also under its form: ``paged_attention_latent`` on
+   minicpm3-4b, ``paged_attention_int8`` on olmo-1b); both pools'
+   dtypes; phase 3 on 8 prompts graphed then eager and phase 4 on 16
+   through ``PagedLLMScheduler`` at Poisson 4/s, each with phases 3-4's
+   checks (K1 = layers x decode steps by form on each engine, K3 on
+   its tensor-core variant = layers x whole-prompt prefills, K2 once a
+   probe, every request answered, pools drained); the scheduler's 16
+   requests then run again on the direct path, every one held until
+   all are admitted: the same tokens, request by request.  On each
+   engine a 1024-token prompt is admitted whole and, on a fresh pool,
+   in chunks of 256 (``begin_prefill`` / ``prefill_chunk``): first-token
+   logits within 2e-2 and the same 8 greedy tokens, or the reason
+   logged (a chunked path whose logits are more than a tenth of their
+   norm off fails).  Last, ``launch.serve``'s ring path on minicpm3-4b
+   (2 x 512 tokens, 16 greedy; phase 6's checks: K3 62 a prefill, graphed
+   ring steps against eager).  With ``--profile``, one minicpm3-4b
+   1024-token prefill and a graphed decode step of each engine under
+   ``torch.profiler``, and phase 6's ring profile.
+10. Last, since a ``torch.profiler`` window slows the host's later
    launches: the whole probe (weights + select) at B=1, S=64, eager
    against graphed: ms a call, host microseconds a call, and device
    busy ms and launches a probe from ``torch.profiler``, whose rows
@@ -222,6 +262,8 @@ Phases, each of which must pass:
 
 Output: progress lines, then the ``{"kernels": [...]}`` JSON line (the
 launches are phase 4's for K1-K3 and phase 6's falcon-mamba run for K4;
+K1's and K3's entries also have phase 9's launches, ``phase9_launches``,
+and their times at the MLA shapes, ``mla_shape`` / ``mla_shapes``;
 K2's entry also has its meta form's launches on phase 7's image path and
 phase 8's served trained muxes, ``meta_launches``, and its times at the
 served shapes, ``meta_form``),
@@ -247,7 +289,11 @@ batch fill, saving factor and SLO violations per load, K2's meta form
 at its served shapes, the profiled serve step), a ``{"paper": ...}``
 line (phase 8's card-vs-CPU steps, each training stage's steps, wall,
 median ms a step and first / last loss, the tables, the headline
-figures, the served trained muxes, the profiled zoo step), the
+figures, the served trained muxes, the profiled zoo step), an
+``{"mla_phase": ...}`` line (phase 9: the decode graphs' checks, the
+pools, per model the admission ms, TTFT p50 / p99, decode tokens/s and
+median step ms graphed / eager, the launches, the chunked prefills,
+the ring path, the phase's wall seconds), the
 card's name and power limit (nvidia-smi), and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the run
 exits non-zero without that last line.  It needs one CUDA card and a
@@ -441,14 +487,21 @@ def paged_call(inp, kw):
 
 
 def check_paged_resources() -> dict:
-    """K1's served instantiation (bf16 pages, one output a thread:
-    ``paged_attention_kernel<__nv_bfloat16, 1>``) and its combine pass:
-    ptxas's registers and spills from the build log; neither may
-    spill."""
+    """K1's served instantiations (bf16 pages: one output a thread and
+    rows up to 256, ``paged_attention_kernel<__nv_bfloat16, 1, 256>``,
+    for the MHA models; 16 outputs a thread and rows up to 512,
+    ``<__nv_bfloat16, 16, 512>``, for the absorbed MLA latent) and both
+    forms of its combine pass (``<false>``, one block a (KV head, row);
+    ``<true>``, runs of outputs for head-tiled shapes): ptxas's
+    registers and spills from the build log; none may spill."""
     found = {}
-    for key, tag in (("paged_attention_kernelI13__nv_bfloat16Li1EE",
+    for key, tag in (("paged_attention_kernelI13__nv_bfloat16Li1ELi256EE",
                       "split"),
-                     ("paged_attention_kernel_combine", "combine")):
+                     ("paged_attention_kernelI13__nv_bfloat16Li16ELi512EE",
+                      "split_mla"),
+                     ("paged_attention_kernel_combineILb0E", "combine"),
+                     ("paged_attention_kernel_combineILb1E",
+                      "combine_mla")):
         entry = ptxas_entries("paged_attention", key)
         check(len(entry) == 1, f"no single ptxas entry for K1's {tag} kernel "
               f"({key}) in the build log")
@@ -460,17 +513,18 @@ def check_paged_resources() -> dict:
     return found
 
 
-def paged_plan_of(inp) -> str:
+def paged_plan_of(inp, v_dim=None) -> str:
     """The split plan the wrapper takes for these inputs (for the log)."""
     import torch
     from repro_torch.kernels.paged_attention import (paged_plan, sm_count,
                                                      smem_optin)
     q, k, v, bt = inp["q"], inp["k"], inp["v"], inp["bt"]
     p = paged_plan(q.shape[0], k.shape[2], q.shape[1] // k.shape[2],
-                   bt.shape[1], k.shape[1], q.shape[2], v.shape[-1],
+                   bt.shape[1], k.shape[1], q.shape[2], v_dim or v.shape[-1],
                    k.element_size(), k.dtype == torch.int8,
                    sm_count(q.device.index), smem_optin(q.device.index))
-    return f"{p.num_splits}x{p.pages_per_split}p tile {p.tile}"
+    tiles = f" x{p.head_tiles} head tiles" if p.head_tiles > 1 else ""
+    return f"{p.num_splits}x{p.pages_per_split}p tile {p.tile}{tiles}"
 
 
 def check_paged_attention(dev) -> float:
@@ -545,20 +599,23 @@ def served_paged_shape(dev, *, h: int, copies: int = 1, lengths=None):
                          q_dtype=torch.bfloat16) for _ in range(copies)]
 
 
-def paged_bound_ms(inp) -> tuple:
-    """(bound ms, bound_by) of one K1 call on these inputs, which have
-    no window or chunk, so each row's query sees its whole length and
-    the kernel reads exactly those tokens.  Bytes: the visible tokens'
-    K/V (and int8 scales) once per (row, kv head), the page ids of the
-    pages holding them and each row's length, q and out, over HBM
-    bandwidth.  Operations: 2*(hd+vd) FLOPs per (query head, visible
-    token) over the bf16 rate."""
+def paged_bound_parts(inp, v_dim=None) -> tuple:
+    """(bytes ms, operations ms) of one K1 call on these inputs, which
+    have no window or chunk, so each row's query sees its whole length
+    and the kernel reads exactly those tokens.  Bytes: the visible
+    tokens' K/V (and int8 scales) once per (row, kv head) — where V is
+    the leading ``v_dim`` features of the K slab (absorbed MLA) the slab
+    once — the page ids of the pages holding them and each row's length,
+    q and out, over HBM bandwidth.  Operations: 2*(hd+vd) FLOPs per
+    (query head, visible token) over the bf16 rate."""
     import torch
     q, k, v = inp["q"], inp["k"], inp["v"]
     b, h, hd = q.shape
     ps, kk = k.shape[1], k.shape[2]
-    vd = v.shape[-1]
-    per_token = kk * (hd * k.element_size() + vd * v.element_size())
+    vd = v_dim or v.shape[-1]
+    per_token = kk * hd * k.element_size()
+    if v is not k:
+        per_token += kk * vd * v.element_size()
     if k.dtype == torch.int8:
         per_token += kk * 2 * 2          # two bf16 scales per kv head
     lengths = inp["lengths"].tolist()
@@ -567,8 +624,13 @@ def paged_bound_ms(inp) -> tuple:
     byts = (tokens * per_token + 4 * (pages + b)
             + (q.numel() + b * h * vd) * q.element_size())
     flops = 2 * h * (hd + vd) * tokens
-    t_bytes = byts / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS * 1e3
+    return byts / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
+
+
+def paged_bound_ms(inp, v_dim=None) -> tuple:
+    """(bound ms, bound_by) of one K1 call: the larger of
+    :func:`paged_bound_parts`."""
+    t_bytes, t_ops = paged_bound_parts(inp, v_dim)
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -629,6 +691,141 @@ def time_paged_attention(dev) -> dict:
                                      "bound_ms", "bound_by")},
             "served_err": max(r["max_abs_err"] for r in rows[:2]),
             "shapes": rows}
+
+
+# K1's absorbed-latent (MLA) form at minicpm3-4b's decode shape: 40 query
+# heads over one latent head of kv_lora + d_rope = 256 + 32, V the leading
+# 256 features of the same slab, bf16 pages of 64, max_len 2048
+MLA_K1 = dict(h=40, kk=1, hd=288, vd=256, ps=64, m=32)
+MLA_K1_LENGTHS = (("B=8 served mix, len-0 row",
+                   [0, 1024, 911, 777, 600, 433, 129, 17]),
+                  ("B=1 len=2048", [2048]))
+MLA_K1_TIMED = (("B=8 H=40 K=1 hd=288 v_dim=256",
+                 [1024, 911, 777, 600, 433, 256, 129, 17]),
+                ("B=1 H=40 K=1 hd=288 v_dim=256 len=2048", [2048]))
+
+
+def mla_paged_inputs(gen, dev, lengths):
+    """K1 operands at the MLA decode shape: q (B, 40, 288) and one bf16
+    latent pool passed as both K and V."""
+    import torch
+    c = MLA_K1
+    inp = paged_inputs(gen, dev, lengths=lengths, h=c["h"], kk=c["kk"],
+                       hd=c["hd"], ps=c["ps"], m=c["m"],
+                       page_dtype=torch.bfloat16, q_dtype=torch.bfloat16,
+                       share_kv=True)
+    inp["v"] = inp["k"]          # one tensor, as the MLA decode passes it
+    return inp
+
+
+def check_paged_mla(dev) -> float:
+    """K1's absorbed-latent form (``v_pages is k_pages``, ``v_dim`` 256
+    of a 288-wide slab, g = 40: five head tiles of 8 heads on the wide
+    instantiation) against its plain version at the served mix of
+    lengths with a length-0 row and at one 2048-token row: within 2e-2,
+    separate == combined operands and two calls bitwise equal, the
+    length-0 row exact zeros, and one replay of the call captured in a
+    CUDA graph bitwise equal to the eager call.  Returns the max
+    error."""
+    import torch
+    from repro_torch.kernels.paged_attention import (decode_prefetch,
+                                                     paged_attention_cuda,
+                                                     paged_attention_plain)
+    gen = torch.Generator().manual_seed(SEED + 40)
+    worst = 0.0
+    vd = {"v_dim": MLA_K1["vd"]}
+    for name, lengths in MLA_K1_LENGTHS:
+        inp = mla_paged_inputs(gen, dev, lengths)
+        check(inp["v"] is inp["k"], "K1 MLA: V is not the K slab")
+        args, kw = paged_call(inp, vd)
+        sep = paged_attention_cuda(*args, **kw)
+        again = paged_attention_cuda(*args, **kw)
+        pf = decode_prefetch(inp["bt"], inp["lengths"])
+        comb = paged_attention_cuda(*args, prefetch=pf, **kw)
+        graph = torch.cuda.CUDAGraph()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            paged_attention_cuda(*args, prefetch=pf, **kw)
+        torch.cuda.current_stream().wait_stream(side)
+        with torch.cuda.graph(graph):
+            captured = paged_attention_cuda(*args, prefetch=pf, **kw)
+        graph.replay()
+        torch.cuda.synchronize()
+        plain = paged_attention_plain(*args, **kw)
+        err = (sep.float() - plain.float()).abs().max().item()
+        same = torch.equal(sep, comb)
+        repeat = torch.equal(sep, again)
+        graphed = torch.equal(sep, captured)
+        zero = bool((sep[lengths.index(0)] == 0).all()) if 0 in lengths \
+            else True
+        log(f"K1 MLA {name:26s} splits {paged_plan_of(inp, 256):22s} "
+            f"max_err={err:.3e} tol={BF16_TOL:g} combined==separate={same} "
+            f"repeat={repeat} graph==eager={graphed} len0_zero={zero}")
+        check(err <= BF16_TOL, f"K1 MLA {name}: max_err {err:.3e}")
+        check(same, f"K1 MLA {name}: the combined operand gives another "
+              f"result than separate ones")
+        check(repeat, f"K1 MLA {name}: two calls differ")
+        check(graphed, f"K1 MLA {name}: the graph's replay differs from the "
+              f"eager call")
+        check(zero, f"K1 MLA {name}: a length-0 row is not exact zeros")
+        worst = max(worst, err)
+    return worst
+
+
+def time_paged_mla(dev) -> list:
+    """K1's absorbed-latent form at minicpm3-4b's decode shapes (B=8 at
+    the served mix of lengths 17-1024, and B=1 at one 2048-token row):
+    eager (``time_cuda``), as a CUDA graph, the plain version, the
+    wrapper's host microseconds a call, and the bound from bytes (3.35
+    TB/s) and from FLOPs (989 TFLOP/s bf16; the fp32 CUDA-core time at
+    67 TFLOP/s beside it, which a SIMT kernel meets first).  Input copies
+    rotate past the 50 MB L2.  Returns a row per shape."""
+    import torch
+    from repro_torch.kernels.paged_attention import (decode_prefetch,
+                                                     paged_attention_cuda,
+                                                     paged_attention_plain)
+    gen = torch.Generator().manual_seed(SEED + 41)
+    vd = MLA_K1["vd"]
+    rows = []
+    for name, lengths in MLA_K1_TIMED:
+        one = mla_paged_inputs(gen, dev, lengths)
+        pool_bytes = one["k"].numel() * one["k"].element_size()
+        copies = [one] + [mla_paged_inputs(gen, dev, lengths) for _ in range(
+            max(1, -(-160_000_000 // pool_bytes) - 1))]
+        pfs = [decode_prefetch(c["bt"], c["lengths"]) for c in copies]
+        n = len(copies)
+
+        def kernel(i):
+            c = copies[i % n]
+            return paged_attention_cuda(c["q"], c["k"], c["k"], c["bt"],
+                                        c["lengths"], v_dim=vd,
+                                        prefetch=pfs[i % n])
+        out = kernel(0)
+        err = (out.float() - paged_attention_plain(
+            *paged_call(one, {})[0], v_dim=vd).float()).abs().max().item()
+        check(err <= BF16_TOL, f"K1 MLA at {name}: max_err {err:.3e}")
+        t_bytes, t_ops = paged_bound_parts(one, vd)
+        row = {"shape": name, "copies": n, "max_abs_err": err,
+               "plan": paged_plan_of(one, vd),
+               "ms": time_cuda(kernel, iters=100),
+               "graph_ms": time_cuda_graph(kernel, iters=50),
+               "plain_ms": time_cuda(lambda i: paged_attention_plain(
+                   *paged_call(copies[i % n], {})[0], v_dim=vd), iters=10),
+               "host_us": host_us(kernel), "bytes_ms": t_bytes,
+               "ops_ms": t_ops,
+               "fp32_simt_ops_ms": t_ops * BF16_FLOPS / FP32_FLOPS}
+        row["bound_ms"] = max(t_bytes, t_ops)
+        row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        log(f"K1 MLA time at {name} page=64 bf16: kernel {row['ms']:.4f} ms, "
+            f"as a CUDA graph {row['graph_ms']:.4f} ms, bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}: bytes "
+            f"{t_bytes:.4f} ms, bf16 FLOPs {t_ops:.4f} ms; fp32 CUDA-core "
+            f"FLOPs {row['fp32_simt_ops_ms']:.4f} ms), plain "
+            f"{row['plain_ms']:.4f} ms, host {row['host_us']:.1f} us a call, "
+            f"plan {row['plan']}, max_err {err:.3e}, {n} rotated copies")
+        rows.append(row)
+    return rows
 
 
 # K2's head form: (B, S, d, M, N, normalize); the first is the served probe
@@ -1020,6 +1217,11 @@ FLASH_NONCAUSAL = ("sweep gqa", "sweep kv>q vd<hd")
 # the page-padded prompt lengths of the served trace, B=1, bf16
 FLASH_SERVED = [(1, s, s, h, h, 128, 128, None, None, None)
                 for h in (16, 32) for s in (128, 448, 1024)]
+# minicpm3-4b's whole-prompt prefill: MLA expanded to 40 heads of q/k
+# width d_nope + d_rope = 96 and v width 64 (the wgmma variant pads both
+# to 128)
+FLASH_MLA = [(1, s, s, 40, 40, 96, 64, None, None, None)
+             for s in (128, 448, 1024)]
 
 
 def check_flash_attention(dev) -> float:
@@ -1044,6 +1246,8 @@ def check_flash_attention(dev) -> float:
               for n in FLASH_NONCAUSAL for d in dtypes]
     cases += [(f"served H={c[3]} S={c[1]}", c, torch.bfloat16, True)
               for c in FLASH_SERVED]
+    cases += [(f"MLA H=40 S={c[1]} 96/64", c, torch.bfloat16, True)
+              for c in FLASH_MLA]
     # the odd case's last q tile sees keys 0 .. S-1 (no window or chunk)
     s_odd = FLASH_CASES["odd key tiles"][1]
     odd_walk = (s_odd - 1) // wgmma_block_k() + 1
@@ -1107,7 +1311,8 @@ def flash_bound_ms(s, t, h, kk, hd, vd, elem) -> tuple:
 def time_flash_attention(dev) -> dict:
     """K3 at every served prefill shape (``FLASH_SERVED``: B=1, S=T in
     {128, 448, 1024}, H=K in {16, 32}, hd 128, bf16, causal: the
-    tensor-core variant) beside its bound, its plain version and one
+    tensor-core variant; ``FLASH_MLA``: minicpm3-4b's expanded MLA
+    prefill, H=K=40, hd 96, vd 64) beside its bound, its plain version and one
     library call (``scaled_dot_product_attention(is_causal=True)``,
     where S == T makes its bottom-right causal rule equal the kernel's
     top-left one; timed here only, never on the port's path).  ``ms``
@@ -1121,8 +1326,8 @@ def time_flash_attention(dev) -> dict:
     (what the whole-prompt prefill ran before K3; not a plain version
     of the kernel, which scales q in fp32) and the SIMT variant on fp32
     copies of the same inputs; at the smallest, the wrapper's host
-    microseconds per call for each variant.  Returns the largest
-    shape's numbers and a row per shape."""
+    microseconds per call for each variant.  Returns the largest MHA
+    shape's numbers, a row per MHA shape and a row per MLA shape."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (flash_attention_cuda,
@@ -1130,7 +1335,7 @@ def time_flash_attention(dev) -> dict:
     from repro_torch.models.attention import blocked_attention
     gen = torch.Generator().manual_seed(SEED + 7)
     rows = []
-    for b, s, t, h, kk, hd, vd, *_ in FLASH_SERVED:
+    for b, s, t, h, kk, hd, vd, *_ in FLASH_SERVED + FLASH_MLA:
         copy_bytes = 2 * (s * h * hd + t * kk * (hd + vd) + s * h * vd)
         n = max(3, -(-150_000_000 // copy_bytes))
         copies = [flash_inputs(gen, dev, b, s, t, h, kk, hd, vd,
@@ -1144,7 +1349,7 @@ def time_flash_attention(dev) -> dict:
             return F.scaled_dot_product_attention(*heads_first[i % n],
                                                   is_causal=True)
         iters = max(50, 2 * n)
-        row = {"S": s, "H": h, "copies": n,
+        row = {"S": s, "H": h, "hd": hd, "vd": vd, "copies": n,
                "ms": time_cuda(kernel, iters=iters),
                "library_ms": time_cuda(sdpa, iters=iters),
                "graph_ms": time_cuda_graph(kernel, iters=iters),
@@ -1157,8 +1362,8 @@ def time_flash_attention(dev) -> dict:
         row["sdpa_vs_kernel_max_abs"] = (
             sdpa(0).transpose(1, 2).float() - kernel(0).float()
         ).abs().max().item()
-        log(f"K3 time at B=1 S=T={s} H={h} hd=128 bf16 (wgmma): kernel "
-            f"{row['ms']:.4f} ms, sdpa {row['library_ms']:.4f} ms "
+        log(f"K3 time at B=1 S=T={s} H={h} hd={hd} vd={vd} bf16 (wgmma): "
+            f"kernel {row['ms']:.4f} ms, sdpa {row['library_ms']:.4f} ms "
             f"({row['ms'] / row['library_ms']:.2f}x); as CUDA graphs "
             f"{row['graph_ms']:.4f} / {row['library_graph_ms']:.4f} ms; "
             f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}); plain "
@@ -1173,6 +1378,8 @@ def time_flash_attention(dev) -> dict:
                 f"(bf16) {row['host_us_wgmma']:.1f} us, SIMT (fp32) "
                 f"{row['host_us_simt']:.1f} us")
         rows.append(row)
+    mla_rows = rows[len(FLASH_SERVED):]
+    rows = rows[:len(FLASH_SERVED)]
     big = rows[-1]
     b, s, t, h, kk, hd, vd, *_ = FLASH_SERVED[-1]
     copies = [flash_inputs(gen, dev, b, s, t, h, kk, hd, vd, torch.bfloat16)
@@ -1187,24 +1394,39 @@ def time_flash_attention(dev) -> dict:
         f"copies {big['simt_fp32_ms']:.4f} ms")
     return {**{k: big[k] for k in ("ms", "plain_ms", "library_ms",
                                    "bound_ms", "bound_by")},
-            "shapes": rows}
+            "shapes": rows, "mla_shapes": mla_rows}
 
 
-def check_model_against_cpu(dev) -> float:
-    """A tiny fp32 model: prefill (through K3 on the card) + teacher-
-    forced paged decode (through K1) on the card, against the same
+def tiny_mla_config():
+    """minicpm3-4b's MLA widths (40 heads, kv_lora 256 + d_rope 32, value
+    heads of 64) in a 2-layer fp32 model of d_model 128: K1's latent
+    form runs its wide instantiation in fp32 with five head tiles."""
+    import math
+    from repro_torch.configs import get_config
+    return get_config("minicpm3-4b").with_(
+        name="tiny-mla-check", num_layers=2, d_model=128, d_ff=256,
+        vocab_size=128, q_lora=64, residual_scale=1.4 / math.sqrt(2),
+        compute_dtype="float32", param_dtype="float32",
+        kv_cache_dtype="float32")
+
+
+def check_model_against_cpu(dev, cfg=None) -> float:
+    """A tiny fp32 model (GQA with a window layer, or ``cfg``: the MLA
+    one of :func:`tiny_mla_config`): prefill (through K3's SIMT variant
+    on the card) + teacher-forced paged decode (through K1; an MLA
+    layer's through its latent form) on the card, against the same
     weights on the CPU (plain path).  Returns the max logit
     difference."""
     import torch
     from repro_torch.configs.base import LayerSpec, ModelConfig
     from repro_torch.kernels import ops
     from repro_torch.models import transformer as tf
-    cfg = ModelConfig(name="tiny-check", arch_type="dense", num_layers=2,
-                      d_model=64, d_ff=128, vocab_size=128, num_heads=4,
-                      num_kv_heads=2, head_dim=16, compute_dtype="float32",
-                      param_dtype="float32", kv_cache_dtype="float32",
-                      pattern=(LayerSpec(), LayerSpec(attn_kind="swa")),
-                      window=6)
+    cfg = cfg or ModelConfig(
+        name="tiny-check", arch_type="dense", num_layers=2, d_model=64,
+        d_ff=128, vocab_size=128, num_heads=4, num_kv_heads=2, head_dim=16,
+        compute_dtype="float32", param_dtype="float32",
+        kv_cache_dtype="float32",
+        pattern=(LayerSpec(), LayerSpec(attn_kind="swa")), window=6)
     params = tf.init_params(cfg, torch.Generator().manual_seed(SEED),
                             device="cpu")
     gparams = _to_device(params, dev)
@@ -1224,9 +1446,14 @@ def check_model_against_cpu(dev) -> float:
                                          block_tables=bt.to(d))[0])
         runs[d.type] = torch.cat([x.float().cpu() for x in logits], 1)
     worst = (runs["cpu"] - runs["cuda"]).abs().max().item()
-    log(f"tiny model on the card vs CPU: max logit diff {worst:.3e} "
+    log(f"{cfg.name} on the card vs CPU: max logit diff {worst:.3e} "
         f"tol={MODEL_TOL:g}; card launches {ops.launches}")
-    check(worst <= MODEL_TOL, f"tiny model card vs CPU: {worst:.3e}")
+    check(worst <= MODEL_TOL, f"{cfg.name} card vs CPU: {worst:.3e}")
+    mla = sum(spec.mixer == "mla" for spec in cfg.pattern) * cfg.num_groups
+    check(ops.launches["paged_attention_latent"] == mla * 12,
+          f"{cfg.name}: K1's latent form launched "
+          f"{ops.launches['paged_attention_latent']} times for 12 decode "
+          f"steps of {mla} MLA layers")
     check(ops.launches["flash_attention"] == cfg.num_layers
           == ops.launches["flash_attention_simt"],
           f"tiny model: flash_attention launched "
@@ -1621,16 +1848,38 @@ class ShadowStep:
         return got
 
 
+K1_FORMS = ("paged_attention", "paged_attention_int8",
+            "paged_attention_latent")
+
+
+def k1_step_tally(eng) -> dict:
+    """The K1 launches one paged decode step of ``eng`` makes, by form
+    (``ops.launches``' keys): one a layer, each also under
+    ``paged_attention_int8`` where the layer's pool is int8 and under
+    ``paged_attention_latent`` where the layer is MLA (the absorbed
+    latent form).  Forms with no launch are left out, as a capture's
+    tally leaves them."""
+    import torch
+    cfg, g = eng.cfg, eng.cfg.num_groups
+    want = {"paged_attention": cfg.num_layers,
+            "paged_attention_int8": sum(
+                g for i in range(len(cfg.pattern))
+                if eng._paged_caches[f"p{i}"]["k"].dtype == torch.int8),
+            "paged_attention_latent": sum(
+                g for spec in cfg.pattern if spec.mixer == "mla")}
+    return {k: n for k, n in want.items() if n}
+
+
 def check_decode_graphs(dev, zoo, new_tokens: int = 6) -> dict:
     """The paged decode steps as CUDA graphs against the eager steps on
     each engine of the zoo, at full width: fresh pools with both steps
     captured (``init_pools``; each capture must tally one K1 launch a
-    layer), then requests A, B = A's prompt (333 tokens: B maps A's
-    partly filled boundary page) and C in one batch with 5 inactive
-    rows until done, every step through :class:`ShadowStep` (the first
-    step copies on write for A and not for B); then one sampled request
-    (temperature 0.8) through ``generate_paged`` twice graphed and once
-    eager: the same tokens.  Returns each engine's figures: capture
+    layer, by form: ``k1_step_tally``), then requests A, B = A's prompt
+    (333 tokens: B maps A's partly filled boundary page) and C in one
+    batch with 5 inactive rows until done, every step through
+    :class:`ShadowStep` (the first step copies on write for A and not
+    for B); then one sampled request (temperature 0.8) through
+    ``generate_paged`` twice graphed and once eager: the same tokens.  Returns each engine's figures: capture
     seconds, steps compared, bitwise or not, and the sampled request's
     ms a step graphed and eager."""
     import torch
@@ -1647,9 +1896,9 @@ def check_decode_graphs(dev, zoo, new_tokens: int = 6) -> dict:
             held = graphs[key].replay_launches(torch.zeros(
                 (zoo["decode_batch"], width + eng._max_pages),
                 dtype=torch.int32, device=dev))
-            check(held == {"paged_attention": layers},
+            check(held == k1_step_tally(eng),
                   f"{name} {key}: the capture tallied {held}, not "
-                  f"{layers} K1 launches")
+                  f"{k1_step_tally(eng)} ({layers} layers)")
         shadows = {k: ShadowStep(g, f"{name} {k}") for k, g in graphs.items()}
         eng._paged_decode = shadows["paged_decode"]
         eng._paged_decode_cow = shadows["paged_decode_cow"]
@@ -1738,7 +1987,7 @@ def serve(dev, zoo, prompts, *, new_tokens=32, profile_step=None,
     captures = init_pools(zoo)
     ops.reset_launches()
     seqs = [[] for _ in engines]
-    order = []
+    order, assign = [], []
     prefill_ms = []
     for prompt in prompts:
         t = time.perf_counter()
@@ -1749,6 +1998,7 @@ def serve(dev, zoo, prompts, *, new_tokens=32, profile_step=None,
         prefill_ms.append((time.perf_counter() - t) * 1e3)
         seqs[m].append(seq)
         order.append(seq)
+        assign.append(m)
     per_engine = []
     for eng, running in zip(engines, seqs):
         graphs = eng._paged_decode, eng._paged_decode_cow
@@ -1761,6 +2011,7 @@ def serve(dev, zoo, prompts, *, new_tokens=32, profile_step=None,
             eng._paged_decode, eng._paged_decode_cow = graphs
         per_engine[-1]["host_us_per_step"] = float(np.median(host))
         per_engine[-1]["capture_s"] = captures.get(eng.cfg.name)
+        per_engine[-1]["step_tally"] = k1_step_tally(eng)
         for s in running:
             check(len(s.tokens) == new_tokens,
                   f"{eng.cfg.name}: a request made {len(s.tokens)} tokens")
@@ -1768,8 +2019,8 @@ def serve(dev, zoo, prompts, *, new_tokens=32, profile_step=None,
         eng.shed_prewarmed()
         per_engine[-1]["pages_in_use_after"] = eng.pool.pages_in_use
     launches = dict(ops.launches)
-    return {"prefill_ms": prefill_ms, "engines": per_engine,
-            "launches": launches, "eager": eager,
+    return {"prefill_ms": prefill_ms, "assign": assign,
+            "engines": per_engine, "launches": launches, "eager": eager,
             "tokens": [list(s.tokens) for s in order],
             "split": {e["model"]: e["requests"] for e in per_engine}}
 
@@ -1779,7 +2030,7 @@ def _decode_all(dev, eng, running, profile_step) -> dict:
     the statistics of the loop."""
     import torch
     from repro_torch.kernels import ops
-    before = ops.launches["paged_attention"]
+    before = {k: ops.launches[k] for k in K1_FORMS}
     t = time.perf_counter()
     steps = 0
     active = list(running)
@@ -1814,7 +2065,9 @@ def _decode_all(dev, eng, running, profile_step) -> dict:
         "decode_tokens_per_s": tokens / dt if dt > 0 else 0.0,
         "median_step_ms": float(np.median(step_ms)),
         "paged_attention_launches":
-            ops.launches["paged_attention"] - before,
+            ops.launches["paged_attention"] - before["paged_attention"],
+        "k1_by_form": {k: ops.launches[k] - before[k] for k in K1_FORMS
+                       if ops.launches[k] - before[k]},
         "cow": eng.cow_count,
         "prompt_tokens_padded": padded,
         "prefill_tokens_computed": eng.prefill_tokens_computed,
@@ -1905,7 +2158,7 @@ def serve_scheduler(dev, zoo, prompts, *, new_tokens=32, rate=4.0,
             "whole_prompt_prefills": eng.whole_prompt_prefills,
             "executor_whole_prompt_prefills": executor_prefills[m],
             "logit_cache_hits": eng.logit_cache_hits,
-            "cow": eng.cow_count,
+            "cow": eng.cow_count, "step_tally": k1_step_tally(eng),
             "ttft_p50_ms": snap["ttft_p50_ms_by_model"][m],
             "ttft_p99_ms": snap["ttft_p99_ms_by_model"][m],
             "decode_tokens_per_s": tokens / busy if busy > 0 else 0.0,
@@ -2183,7 +2436,9 @@ def check_ring(run, *, scan: bool) -> None:
     k3 = 0 if scan else layers * run["prefills"]
     want = {"selective_scan": layers * run["prefills"] if scan else 0,
             "flash_attention": k3, "flash_attention_wgmma": k3,
-            "flash_attention_simt": 0, "paged_attention": 0, "mux_score": 0}
+            "flash_attention_simt": 0, "paged_attention": 0,
+            "paged_attention_int8": 0, "paged_attention_latent": 0,
+            "mux_score": 0}
     check(run["prefills"] > 0 and got == want,
           f"{name}: launches {got} for {run['prefills']} prefills of "
           f"{layers} layers, expected {want}")
@@ -2251,6 +2506,10 @@ def check_served(stats, cfgs) -> None:
               f"{cfg.name}: paged_attention launched "
               f"{e['paged_attention_launches']} times, expected "
               f"{cfg.num_layers} layers x {e['decode_steps']} steps = {want}")
+        forms = {k: n * e["decode_steps"] for k, n in e["step_tally"].items()}
+        check(e["k1_by_form"] == forms,
+              f"{cfg.name}: K1 launched {e['k1_by_form']} by form, expected "
+              f"{forms} ({e['decode_steps']} steps)")
         k3_want += cfg.num_layers * e["whole_prompt_prefills"]
     check(stats["launches"]["flash_attention"] == k3_want > 0,
           f"direct path: flash_attention launched "
@@ -2281,7 +2540,8 @@ def check_scheduler(run, prompts, cfgs, new_tokens) -> None:
               f"{tag}: an output of shape {out.shape} is not its "
               f"prompt ({len(prompt)}) + {new_tokens} tokens")
     by_model = {e["model"]: e for e in run["engines"]}
-    k1_want = k3_want = 0
+    k1_want = dict.fromkeys(K1_FORMS, 0)
+    k3_want = 0
     for cfg in cfgs:
         e = by_model[cfg.name]
         check(e["pages_in_use_after"] == 0,
@@ -2296,16 +2556,18 @@ def check_scheduler(run, prompts, cfgs, new_tokens) -> None:
                   f"{e['executor_whole_prompt_prefills']} of them on an "
                   f"executor thread, with {e['logit_cache_hits']} "
                   f"logit-cache hits")
-        k1_want += cfg.num_layers * e["decode_steps"]
+        for k, n in e["step_tally"].items():
+            k1_want[k] += n * e["decode_steps"]
         k3_want += cfg.num_layers * e["whole_prompt_prefills"]
     got = run["launches"]
     check(got["flash_attention"] == k3_want > 0,
           f"{tag}: flash_attention launched {got['flash_attention']} "
           f"times, expected layers x whole-prompt prefills = {k3_want}")
     check_wgmma_prefills(tag, got)
-    check(got["paged_attention"] == k1_want > 0,
-          f"{tag}: paged_attention launched {got['paged_attention']} "
-          f"times, expected layers x decode steps = {k1_want}")
+    check({k: got[k] for k in K1_FORMS} == k1_want
+          and k1_want["paged_attention"] > 0,
+          f"{tag}: K1 launched {({k: got[k] for k in K1_FORMS})} by form, "
+          f"expected layers x decode steps = {k1_want}")
     check(got["mux_score"] == len(prompts),
           f"{tag}: mux_score launched {got['mux_score']} times for "
           f"{len(prompts)} requests")
@@ -2373,6 +2635,252 @@ def decode_graph_checks(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 9: MLA (minicpm3-4b) and an int8 pool (olmo-1b) served
+# ---------------------------------------------------------------------------
+
+MLA_PAGES = (512, 512)       # pages of 64: 1.17 GB / 2.18 GB of pool
+CHUNK_TOL = 2e-2             # first-token logits, chunked vs whole prompt
+PROMPT_VOCAB = 50_304        # olmo-1b's vocabulary, which both models take
+
+
+def phase9_cfgs():
+    """minicpm3-4b at its published config and olmo-1b with an int8
+    pool."""
+    from repro_torch.configs import get_config
+    return [get_config("minicpm3-4b"),
+            get_config("olmo-1b").with_(kv_cache_dtype="int8")]
+
+
+def check_phase9_pools(zoo) -> dict:
+    """minicpm3-4b's pool holds bf16 latent pages (one head of
+    kv_lora + d_rope, V a width-1 slab) though nothing asked for int8
+    there, and olmo-1b's holds int8 pages with bf16 scales."""
+    import torch
+    out = {}
+    for eng in zoo["engines"]:
+        slabs = eng._paged_caches["p0"]
+        out[eng.cfg.name] = {k: [str(v.dtype), list(v.shape)]
+                             for k, v in slabs.items()}
+        if eng.cfg.pattern[0].mixer == "mla":
+            width = eng.cfg.kv_lora + eng.cfg.d_rope
+            check(slabs["k"].dtype == torch.bfloat16
+                  and slabs["k"].shape[-2:] == (1, width)
+                  and slabs["v"].shape[-1] == 1 and set(slabs) == {"k", "v"},
+                  f"{eng.cfg.name}: pool {out[eng.cfg.name]} is not a bf16 "
+                  f"latent pool of width {width}")
+        else:
+            check(slabs["k"].dtype == torch.int8
+                  and slabs["k_scale"].dtype == torch.bfloat16,
+                  f"{eng.cfg.name}: pool {out[eng.cfg.name]} is not int8")
+    log(f"phase 9 pools: {json.dumps(out)}")
+    return out
+
+
+def check_chunked_prefill(dev, zoo, n_tokens: int = 1024, chunk: int = 256,
+                          new_tokens: int = 8) -> dict:
+    """On each engine, one ``n_tokens`` prompt admitted whole
+    (``begin_prefill`` + one ``prefill_chunk``: K3) and, on a fresh pool,
+    in chunks of ``chunk`` (the q_offset tail path: each chunk attends
+    over the block-table gather of the pool), then ``new_tokens`` greedy
+    tokens each.  The first-token logits must agree within
+    ``CHUNK_TOL`` and the tokens be the same, or the reason is logged;
+    a chunked path that computed something else (logits off by more than
+    a tenth of their norm) fails."""
+    import torch
+    rng = np.random.default_rng(SEED + 93)
+    prompt = rng.integers(0, PROMPT_VOCAB, n_tokens).astype(np.int32)
+    out = {}
+    for eng, pages in zip(zoo["engines"], zoo["num_pages"]):
+        name, res = eng.cfg.name, {}
+        for how, size in (("whole", None), ("chunked", chunk)):
+            eng.init_paged(num_pages=pages, page_size=64,
+                           decode_batch=zoo["decode_batch"], logit_cache=8)
+            eng.capture_decode_steps()
+            before = eng.whole_prompt_prefills
+            t = time.perf_counter()
+            seq = eng.begin_prefill(prompt, max_new_tokens=new_tokens)
+            calls = 1
+            while not eng.prefill_chunk(seq, chunk_tokens=size):
+                calls += 1
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+            row = torch.from_numpy(eng._logit_cache_get(
+                eng._prompt_key(seq.prompt)).copy())
+            while not seq.done:
+                eng.decode_step_batch([seq])
+            eng.pool.release(seq)
+            check(eng.pool.pages_in_use == 0,
+                  f"{name} {how} prefill: {eng.pool.pages_in_use} pages held")
+            res[how] = {"row": row, "tokens": list(seq.tokens),
+                        "calls": calls, "ms": ms,
+                        "whole_prefills": eng.whole_prompt_prefills - before}
+        w, c = res["whole"], res["chunked"]
+        check(w["calls"] == 1 and w["whole_prefills"] == 1
+              and c["calls"] == -(-n_tokens // chunk)
+              and c["whole_prefills"] == 0,
+              f"{name}: whole {w['calls']} call(s) / {w['whole_prefills']} "
+              f"K3 prefill(s), chunked {c['calls']} / {c['whole_prefills']}")
+        check(bool(torch.isfinite(w["row"]).all())
+              and bool(torch.isfinite(c["row"]).all()),
+              f"{name}: chunked-prefill logits not finite")
+        err = (w["row"] - c["row"]).abs().max().item()
+        rel = ((w["row"] - c["row"]).norm() / w["row"].norm()).item()
+        same = w["tokens"] == c["tokens"]
+        check(rel <= 0.1, f"{name}: chunked prefill's first-token logits are "
+              f"{rel:.3f} of their norm off the whole prompt's")
+        if err > CHUNK_TOL or not same:
+            reason = (f"{name}: chunked prefill max logit diff {err:.3e} "
+                      f"(tol {CHUNK_TOL:g}), tokens "
+                      f"{'equal' if same else 'differ'} ({w['tokens']} whole, "
+                      f"{c['tokens']} chunked): bf16 through "
+                      f"{eng.cfg.num_layers} layers, the chunks' K/V from "
+                      f"GEMMs of {chunk} rows and their attention in fp32 "
+                      f"over the gathered pool, the whole prompt's from "
+                      f"GEMMs of {n_tokens} rows and K3 (bf16 P), round "
+                      f"differently")
+            if eng._paged_caches["p0"]["k"].dtype == torch.int8:
+                reason += ("; and each chunk reads the earlier chunks' K/V "
+                           "back from the int8 pool, quantised, where the "
+                           "whole prompt attends over K/V as computed")
+            log("  " + reason)
+        out[name] = {"max_logit_diff": err, "rel_l2": rel,
+                     "tokens_equal": same, "chunks": c["calls"],
+                     "whole_ms": w["ms"], "chunked_ms": c["ms"],
+                     "first_token": [w["tokens"][0], c["tokens"][0]]}
+        log(f"phase 9 chunked prefill, {name}: {json.dumps(out[name])}")
+    return out
+
+
+def replay_direct(dev, zoo, prompts, *, new_tokens: int = 32) -> list:
+    """The direct path's tokens for ``prompts``, in their order: each
+    through ``MuxServer.probe`` (which prewarms the selected engine) ->
+    ``prefill_into_pages``, every request held until all are admitted,
+    then each engine's requests decoded ``decode_batch`` at a time (a
+    decode step's rows do not depend on each other: the step's shape is
+    fixed).  Each pool must drain."""
+    engines, server = zoo["engines"], zoo["server"]
+    init_pools(zoo)
+    seqs = []
+    for prompt in prompts:
+        m = int(server.probe(prompt[None])["assign"][0])
+        seqs.append((m, engines[m].prefill_into_pages(
+            prompt, max_new_tokens=new_tokens)))
+    cap = zoo["decode_batch"]
+    for m, eng in enumerate(engines):
+        mine = [s for mm, s in seqs if mm == m]
+        for i in range(0, len(mine), cap):
+            active = mine[i:i + cap]
+            while active:
+                eng.decode_step_batch(active)
+                active = [s for s in active if not s.done]
+    for m, s in seqs:
+        engines[m].pool.release(s)
+    for eng in engines:
+        eng.shed_prewarmed()
+        check(eng.pool.pages_in_use == 0, f"{eng.cfg.name}: "
+              f"{eng.pool.pages_in_use} pages held after the replay")
+    return [list(s.tokens) for _, s in seqs]
+
+
+def mla_phase(dev, on_logits, finite, profile: bool) -> dict:
+    """Phase 9: minicpm3-4b (MLA, K1's latent form, bf16 latent pool)
+    and olmo-1b (int8 pool, K1's int8 form) at full width behind the
+    token-probe mux: the decode graphs' checks, the direct path graphed
+    and eager, the scheduler path, the same prompts again on the direct
+    path (the scheduler's tokens must equal it), a chunked prefill on
+    each engine, then the launcher's ring path on minicpm3-4b.  Returns
+    the phase's figures."""
+    import torch
+    from repro_torch.kernels import ops
+    t0 = time.perf_counter()
+    finite.update(bad=0, seen=0)
+    cfgs = phase9_cfgs()
+    new_tokens = 32
+    prompts = make_prompts(np.random.default_rng(SEED + 90), PROMPT_VOCAB)
+    sched_prompts = make_sched_prompts(np.random.default_rng(SEED + 91),
+                                       PROMPT_VOCAB)
+    zoo = build_zoo(dev, cfgs, list(MLA_PAGES), prompts + sched_prompts,
+                    vocab=PROMPT_VOCAB, dtype=torch.bfloat16,
+                    on_logits=on_logits)
+    log(f"phase 9 zoo: setup {zoo['setup_s']:.1f} s, threshold "
+        f"{zoo['threshold']:.6f}")
+    out = {"decode_graphs": check_decode_graphs(dev, zoo),
+           "pools": check_phase9_pools(zoo)}
+    direct, out["direct_steps"] = serve_direct(dev, zoo, prompts, cfgs,
+                                               new_tokens=new_tokens)
+    sched = serve_scheduler(dev, zoo, sched_prompts, new_tokens=new_tokens)
+    log(f"phase 9, scheduler path: {sched['completed']} requests in "
+        f"{sched['wall_s']:.2f} s, {sched['decode_batches']} decode batches "
+        f"({sched['mixed_admission_batches']} mixed), launches "
+        f"{sched['launches']}")
+    for e in sched["engines"]:
+        log(f"  {json.dumps(e)}")
+    check_scheduler(sched, sched_prompts, cfgs, new_tokens)
+    replay = replay_direct(dev, zoo, sched_prompts, new_tokens=new_tokens)
+    differ = [i for i, (p, o, t) in enumerate(zip(
+        sched_prompts, sched["outs"], replay))
+        if list(np.asarray(o)[len(p):]) != t]
+    check(not differ, f"phase 9: the scheduler's tokens differ from the "
+          f"direct path's on the same prompts for requests {differ}")
+    out["chunked_prefill"] = check_chunked_prefill(dev, zoo)
+    check(finite["seen"] > 0 and finite["bad"] == 0,
+          f"phase 9: {finite['bad']} of {finite['seen']} logits tensors not "
+          f"finite")
+    by_model = {}
+    for m, eng in enumerate(zoo["engines"]):
+        name = eng.cfg.name
+        se = next(e for e in sched["engines"] if e["model"] == name)
+        de = next(e for e in direct["engines"] if e["model"] == name)
+        by_model[name] = {
+            "admission_ms": [ms for ms, a in zip(direct["prefill_ms"],
+                                                 direct["assign"]) if a == m],
+            "ttft_p50_ms": se["ttft_p50_ms"], "ttft_p99_ms": se["ttft_p99_ms"],
+            "decode_tokens_per_s": {"direct": de["decode_tokens_per_s"],
+                                    "scheduler": se["decode_tokens_per_s"]},
+            "median_step_ms": {
+                "graph": out["direct_steps"][name]["median_step_ms"][0],
+                "eager": out["direct_steps"][name]["median_step_ms"][1]},
+            "requests": {"direct": de["requests"],
+                         "scheduler": se["requests"]},
+            "k1_by_form_direct": de["k1_by_form"]}
+    out.update(by_model=by_model, direct_launches=direct["launches"],
+               scheduler_launches=sched["launches"],
+               scheduler_ttft_ms=[sched["ttft_p50_ms"], sched["ttft_p99_ms"]])
+    if profile:
+        rng = np.random.default_rng(SEED + 94)
+        mla_eng = zoo["engines"][0]
+        out["prefill_profile"] = profile_prefill(mla_eng, rng, 1024)
+        log(f"  phase 9 prefill profile {json.dumps(out['prefill_profile'])}")
+        prof_run = serve(dev, zoo, prompts, new_tokens=new_tokens,
+                         profile_step=2)
+        out["decode_step_profile"] = {e["model"]: e["profile"]
+                                      for e in prof_run["engines"]}
+        for name, p in out["decode_step_profile"].items():
+            log(f"  phase 9 graphed decode step profile {name}: "
+                f"{json.dumps(p)}")
+    del zoo
+    gc.collect()
+    torch.cuda.empty_cache()
+    finite.update(bad=0, seen=0)
+    ops.reset_launches()
+    ring = serve_ring(dev, "minicpm3-4b", prompt_len=512, new_tokens=16,
+                      step_times=16, profile=profile, on_logits=on_logits)
+    log(f"phase 9, minicpm3-4b ring path: {json.dumps(ring)}")
+    check_ring(ring, scan=False)
+    check(finite["seen"] > 0 and finite["bad"] == 0,
+          f"phase 9 ring: {finite['bad']} of {finite['seen']} logits tensors "
+          f"not finite")
+    out["ring"] = {k: ring[k] for k in (
+        "prefill_ms", "decode_tokens_per_s", "eager_decode_tokens_per_s",
+        "median_decode_step_ms", "capture_s", "steps", "prefills",
+        "launches", "profile")}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"phase 9, MLA and int8 pools served: {out['wall_s']:.1f} s wall")
+    return out
+
 
 # ---------------------------------------------------------------------------
 # Phase 7: the paper's image mux (CNN zoo, 4-conv probe, K2's meta form)
@@ -3285,6 +3793,8 @@ def main(argv) -> int:
 
     k1_err = check_paged_attention(dev)
     k1 = time_paged_attention(dev)
+    k1_mla_err = check_paged_mla(dev)
+    k1_mla = time_paged_mla(dev)
     k2_err = check_mux_score(dev)
     k2 = time_mux_score(dev)
     probe_srv, probe_tokens = probe_server(dev)
@@ -3293,6 +3803,7 @@ def main(argv) -> int:
     k3_err = check_flash_attention(dev)
     k3 = time_flash_attention(dev)
     check_model_against_cpu(dev)
+    check_model_against_cpu(dev, tiny_mla_config())
     k4_err = check_selective_scan(dev)
     k4 = time_selective_scan(dev)
     check_mamba_against_cpu(dev)
@@ -3376,6 +3887,8 @@ def main(argv) -> int:
     image, image_srv, image_x = image_mux_phase(dev)
     # phase 8: Algorithm 1 trained, the paper's tables, the trained mux served
     paper, paper_state = paper_phase(dev)
+    # phase 9: MLA (minicpm3-4b) and an int8 pool (olmo-1b) served
+    mla = mla_phase(dev, on_logits, finite, args.profile)
     # last: its torch.profiler window leaves the host slower at every later
     # launch, which would show in the served phases' decode rates
     probe["by_path"] = time_probe(dev, probe_srv, probe_tokens)
@@ -3386,15 +3899,19 @@ def main(argv) -> int:
         dev, paper_state, paper["training"]["zoo_cnt"]["median_step_ms"])
 
     launches = run["launches"]
+    mla_launches = mla["scheduler_launches"]
     meta_form = image["meta_form"] + paper["served"]["meta_form"]
     kernels = [
         {"name": "paged_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/paged_attention.cu",
          "replaces": "src/repro/kernels/paged_attention.py:289",
          "launches": launches["paged_attention"],
-         "max_abs_err": max(k1_err, k1["served_err"]), "ms": k1["ms"],
-         "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
-         "bound_by": k1["bound_by"], "library_ms": None},
+         "max_abs_err": max(k1_err, k1["served_err"], k1_mla_err),
+         "ms": k1["ms"], "plain_ms": k1["plain_ms"],
+         "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
+         "library_ms": None,
+         "phase9_launches": {k: mla_launches[k] for k in K1_FORMS},
+         "mla_shape": k1_mla},
         {"name": "mux_score", "route": "cuda",
          "source": "src/repro_torch/csrc/mux_score.cu",
          "replaces": "src/repro/kernels/mux_score.py:47",
@@ -3413,7 +3930,11 @@ def main(argv) -> int:
          "launches": launches["flash_attention"],
          "max_abs_err": k3_err, "ms": k3["ms"],
          "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
-         "bound_by": k3["bound_by"], "library_ms": k3["library_ms"]},
+         "bound_by": k3["bound_by"], "library_ms": k3["library_ms"],
+         "phase9_launches": {
+             k: mla_launches[k] for k in ("flash_attention",
+                                          "flash_attention_wgmma")},
+         "mla_shapes": k3["mla_shapes"]},
         {"name": "selective_scan", "route": "cuda",
          "source": "src/repro_torch/csrc/selective_scan.cu",
          "replaces": "src/repro/kernels/selective_scan.py:65",
@@ -3423,7 +3944,11 @@ def main(argv) -> int:
          "bound_by": k4["bound_by"], "library_ms": None},
     ]
     # launches: the scheduler path's run (K1-K3) and phase 6's falcon-mamba
-    # run (K4); plain_ms is the plain PyTorch version's time, no yardstick
+    # run (K4); phase9_launches: phase 9's scheduler run (minicpm3-4b +
+    # olmo-1b int8; K1 by form: all, int8 pages, the MLA latent); K1's
+    # mla_shape / K3's mla_shapes: their times at minicpm3-4b's decode /
+    # prefill shapes; plain_ms is the plain PyTorch version's time, no
+    # yardstick
     # of speed; K2's ms / bound are its head form's at the served probe
     # shape (graph_ms: the same as a CUDA graph, as the probe runs it);
     # its meta form's launches on phase 7's image path (serve, scheduler)
@@ -3463,6 +3988,7 @@ def main(argv) -> int:
                                 **probe}}), flush=True)
     print(json.dumps({"image_mux": image}), flush=True)
     print(json.dumps({"paper": paper}), flush=True)
+    print(json.dumps({"mla_phase": mla}), flush=True)
     return finish()
 
 

@@ -13,6 +13,7 @@ ARCHITECTURES: Dict[str, str] = {
     "olmo-1b": "repro_torch.configs.olmo_1b",
     "codeqwen1.5-7b": "repro_torch.configs.codeqwen15_7b",
     "falcon-mamba-7b": "repro_torch.configs.falcon_mamba_7b",
+    "minicpm3-4b": "repro_torch.configs.minicpm3_4b",
 }
 
 

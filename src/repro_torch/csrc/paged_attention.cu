@@ -65,6 +65,28 @@
 //    neighbouring features of one V row.  The outputs a thread owns are
 //    a template argument (1, 4 or 16 for g * vd up to 128, 512, 2048),
 //    so the served MHA shapes keep one accumulator and few registers.
+//  - Head tiles (absorbed MLA).  minicpm3-4b decodes 40 query heads
+//    against ONE latent head of hd = kv_lora + d_rope = 288 with V the
+//    leading v_dim = 256 features of the same slab: g * vd = 10,240
+//    outputs, five times what a block owns.  The grid's x dimension then
+//    runs over (KV head, head tile): each block owns tile_heads query
+//    heads (8 here, 8 * 256 = 2048 outputs, the kOut = 16 accumulator
+//    path) of one split, and the five tiles of a split re-read the same
+//    latent rows (9.4 MB a layer at B = 8, under the 50 MB L2).  Every
+//    other shape has one tile (head_tiles = 1: the block is (KV head,
+//    row, split) as before, with the same plan, and runs a narrow
+//    instantiation, where the tiling is compiled out; only the wide one
+//    takes tiles, and the combine pass has a form of each).  At g = 40
+//    the work is 2 * 40 * (288 + 256) FLOPs a visible token against 576
+//    bytes, 75 FLOPs a byte: on fp32 CUDA cores (67 TFLOP/s) that is
+//    above the 20 FLOPs a byte where bytes bind, so this shape is bound
+//    by the arithmetic of a SIMT kernel, not by its bytes.
+//  - Row width.  A K row of up to 256 features (kNarrowHd) takes one
+//    16-byte chunk a lane for bf16; rows up to 512 (kWideHd: the MLA
+//    latent of 288) and every head-tiled shape take the wide
+//    instantiation, two chunks a lane (bf16; four for fp32), with half
+//    as many tokens a lane group scores at once so a lane still holds 32
+//    K values.
 //  - Combine (paged_attention_kernel_combine).  Where a shape has more
 //    than one split, a second kernel merges each (row, KV head)'s
 //    partials (m, l, unnormalised acc, fp32 scratch from the wrapper) by
@@ -72,7 +94,9 @@
 //    once, and writes out in q's dtype: no float atomics, so a call is
 //    bitwise repeatable, and a row with no visible token (length 0) gets
 //    exact zeros.  With one split the split kernel writes out itself.
-// What it leaves out: tensor cores for g >= 2 (mma.sync), TMA, and a
+// What it leaves out: tensor cores for g >= 2 (mma.sync: at g = 40 the
+// MLA shape's arithmetic, not its bytes, binds), one staged tile read by
+// both the scores and P V where V is a slice of the K slab, TMA, and a
 // persistent grid.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -84,7 +108,9 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxOutPerThread = 16;  // g * v_dim <= kThreads * 16 = 2048
+constexpr int kMaxOutPerThread = 16;  // a block's heads * v_dim <= 2048
+constexpr int kNarrowHd = 256;        // K row widths of the narrow form
+constexpr int kWideHd = 512;          // and of the wide one
 constexpr int kStages = 2;            // tiles in the cp.async ring
 constexpr int kCombineThreads = 128;
 constexpr int kCombineBatch = 16;     // splits whose partials load at once
@@ -243,8 +269,9 @@ __device__ __forceinline__ int round16(int x) {
   return (x + 15) / 16 * 16;
 }
 
-// kOut: (head, feature) outputs a thread owns, g * vd <= kThreads * kOut
-template <typename TKV, int kOut>
+// kOut: (head, feature) outputs a thread owns, tile_heads * vd <=
+// kThreads * kOut; kMaxHd: the widest K row (kNarrowHd or kWideHd)
+template <typename TKV, int kOut, int kMaxHd>
 __global__ void __launch_bounds__(kThreads, 4) paged_attention_kernel(
     const void* __restrict__ q, int q_bf16,  // (B, H, hd) fp32 or bf16
     const TKV* __restrict__ k,                // (P, ps, K, hd)
@@ -257,12 +284,12 @@ __global__ void __launch_bounds__(kThreads, 4) paged_attention_kernel(
     float* __restrict__ part_acc,  // (B, K, splits, g, vd) when splits > 1
     void* __restrict__ out,        // (B, H, vd) in q's dtype, splits == 1
     int num_kv_heads, int g, int hd, int v_ld, int vd, int ps, int m,
-    int pages_per_split, int tile, int wk, int wv, float scale,
-    float logit_cap, int window, int chunk) {
+    int pages_per_split, int tile, int head_tiles, int tile_heads, int wk,
+    int wv, float scale, float logit_cap, int window, int chunk) {
   using EL = Elem<TKV>;
   constexpr int es = sizeof(TKV);
   constexpr int E = EL::E;
-  constexpr int kMaxChunks = (256 * es / 16 + 31) / 32;  // per lane, hd<=256
+  constexpr int kMaxChunks = (kMaxHd * es / 16 + 31) / 32;  // per lane
   // tokens a lane group scores at once: 32 K values a lane in flight
   constexpr int kTokPerLane = 32 / (kMaxChunks * E);
   extern __shared__ __align__(16) unsigned char smem[];
@@ -272,17 +299,25 @@ __global__ void __launch_bounds__(kThreads, 4) paged_attention_kernel(
   const int hdq = kb / es;            // q row length (floats), zero-padded
   const int split_tokens = pages_per_split * ps;
   const bool quant = k_scale != nullptr;
-  // the layout that kernels/paged_attention.py::split_smem_bytes counts;
-  // the launch asks for that count
+  // only the wide form takes head tiles (the launcher sends every tiled
+  // shape there); in the narrow forms a block owns the KV head's group
+  constexpr bool kTiles = kMaxHd == kWideHd;
+  const int heads = kTiles ? tile_heads : g;
+  // the layout that kernels/paged_attention.py::split_smem_bytes counts
+  // (for the block's heads); the launch asks for that count
   float* q_s = reinterpret_cast<float*>(smem + kStages * tile * row_b);
-  float* s_s = q_s + g * hdq;                        // (g, split_tokens)
-  float* ks_s = s_s + g * split_tokens;              // (split_tokens,)
+  float* s_s = q_s + heads * hdq;                    // (heads, split_tokens)
+  float* ks_s = s_s + heads * split_tokens;          // (split_tokens,)
   float* vs_s = ks_s + (quant ? split_tokens : 0);   // (split_tokens,)
-  float* m_s = vs_s + (quant ? split_tokens : 0);    // (g,)
-  float* l_s = m_s + g;                              // (g,)
-  int* pages_s = reinterpret_cast<int*>(l_s + g);    // (pages_per_split,)
+  float* m_s = vs_s + (quant ? split_tokens : 0);    // (heads,)
+  float* l_s = m_s + heads;                          // (heads,)
+  int* pages_s = reinterpret_cast<int*>(l_s + heads);  // (pages_per_split,)
 
-  const int kh = blockIdx.x;
+  // blockIdx.x = (KV head, head tile); the block owns query heads
+  // g0 .. g0 + gb - 1 of its KV head's group
+  const int kh = kTiles ? blockIdx.x / head_tiles : blockIdx.x;
+  const int g0 = kTiles ? (blockIdx.x - kh * head_tiles) * tile_heads : 0;
+  const int gb = kTiles ? min(tile_heads, g - g0) : g;
   const int b = blockIdx.y;
   const int split = blockIdx.z;
   const int num_splits = gridDim.z;
@@ -290,7 +325,7 @@ __global__ void __launch_bounds__(kThreads, 4) paged_attention_kernel(
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int num_heads = num_kv_heads * g;
-  const int n_out = g * vd;
+  const int n_out = gb * vd;
   const int64_t bk = static_cast<int64_t>(b) * num_kv_heads + kh;
 
   // prologue: the row's length and the split's page ids in flight
@@ -317,11 +352,13 @@ __global__ void __launch_bounds__(kThreads, 4) paged_attention_kernel(
     if (num_splits == 1) {
       for (int o = tid; o < n_out; o += kThreads)
         store_out(out, q_bf16,
-                  (static_cast<int64_t>(b) * num_heads + kh * g) * vd + o,
+                  (static_cast<int64_t>(b) * num_heads + kh * g + g0) * vd
+                      + o,
                   0.f);
     } else {
-      for (int gi = tid; gi < g; gi += kThreads) {
-        float* ml = part_ml + ((bk * num_splits + split) * g + gi) * 2;
+      for (int gi = tid; gi < gb; gi += kThreads) {
+        float* ml =
+            part_ml + ((bk * num_splits + split) * g + g0 + gi) * 2;
         ml[0] = kNegInf;
         ml[1] = 0.f;
       }
@@ -367,8 +404,9 @@ __global__ void __launch_bounds__(kThreads, 4) paged_attention_kernel(
   for (int j = 0; j < kStages - 1; ++j) issue(j);
   // q (scaled, fp32) and the split's int8 scales, while the first tiles
   // are in flight
-  const int64_t q_row = (static_cast<int64_t>(b) * num_heads + kh * g) * hd;
-  for (int i = tid; i < g * hdq; i += kThreads) {
+  const int64_t q_row =
+      (static_cast<int64_t>(b) * num_heads + kh * g + g0) * hd;
+  for (int i = tid; i < gb * hdq; i += kThreads) {
     const int gi = i / hdq, d = i - gi * hdq;
     float x = 0.f;
     if (d < hd) {
@@ -436,7 +474,7 @@ __global__ void __launch_bounds__(kThreads, 4) paged_attention_kernel(
           }
           ksc[u] = quant && ok[u] ? ks_s[i0 + t] : 1.f;
         }
-        for (int gi = 0; gi < g; ++gi) {
+        for (int gi = 0; gi < gb; ++gi) {
           float part[U];
 #pragma unroll
           for (int u = 0; u < U; ++u) part[u] = 0.f;
@@ -479,7 +517,7 @@ __global__ void __launch_bounds__(kThreads, 4) paged_attention_kernel(
         __syncthreads();        // every score of the split written
         // exact softmax statistics over the split: one warp a query head;
         // P keeps the int8 V scale folded in
-        for (int gi = warp; gi < g; gi += kWarps) {
+        for (int gi = warp; gi < gb; gi += kWarps) {
           float* row = s_s + gi * split_tokens;
           float mx = kNegInf;
           for (int i = lane; i < n_vis; i += 32) mx = fmaxf(mx, row[i]);
@@ -525,41 +563,51 @@ __global__ void __launch_bounds__(kThreads, 4) paged_attention_kernel(
       const int o = tid + r * kThreads;
       if (o < n_out)
         store_out(out, q_bf16,
-                  (static_cast<int64_t>(b) * num_heads + kh * g) * vd + o,
+                  (static_cast<int64_t>(b) * num_heads + kh * g + g0) * vd
+                      + o,
                   acc[r] / l_s[o / vd]);
     }
     return;
   }
-  float* pa = part_acc + (bk * num_splits + split) * g * vd;
+  float* pa = part_acc + ((bk * num_splits + split) * g + g0) * vd;
 #pragma unroll
   for (int r = 0; r < kOut; ++r) {
     const int o = tid + r * kThreads;
     if (o < n_out) pa[o] = acc[r];
   }
-  for (int gi = tid; gi < g; gi += kThreads) {
-    float* ml = part_ml + ((bk * num_splits + split) * g + gi) * 2;
+  for (int gi = tid; gi < gb; gi += kThreads) {
+    float* ml = part_ml + ((bk * num_splits + split) * g + g0 + gi) * 2;
     ml[0] = m_s[gi];
     ml[1] = l_s[gi];
   }
 }
 
-// One block per (KV head, row): a running log-sum-exp merge of the
-// splits that saw a token (l_s > 0), in split order; kCombineBatch
+// One block per (KV head, row), or with kRuns (a shape with head tiles)
+// per (KV head, row, run of kCombineThreads of its g * vd outputs), so
+// the 10,240 outputs of an MLA row spread over 80 blocks: a running
+// log-sum-exp merge of
+// the splits that saw a token (l_s > 0), in split order; kCombineBatch
 // splits' partials load at once (an empty split's acc is read but never
 // used).  No such split (a row of length 0) gives exact zeros.
+template <bool kRuns>
 __global__ void __launch_bounds__(kCombineThreads)
     paged_attention_kernel_combine(const float* __restrict__ part_ml,
                                    const float* __restrict__ part_acc,
                                    void* __restrict__ out, int out_bf16,
                                    int num_kv_heads, int g, int vd,
                                    int num_splits) {
-  const int kh = blockIdx.x;
+  // kRuns: runs of kCombineThreads outputs, one a block
+  const int runs = kRuns ? (g * vd + kCombineThreads - 1) / kCombineThreads
+                         : 1;
+  const int kh = kRuns ? blockIdx.x / runs : blockIdx.x;
+  const int o0 = kRuns ? (blockIdx.x - kh * runs) * kCombineThreads : 0;
+  const int o1 = kRuns ? min(o0 + kCombineThreads, g * vd) : g * vd;
   const int b = blockIdx.y;
   const int64_t bk = static_cast<int64_t>(b) * num_kv_heads + kh;
   const float* ml = part_ml + bk * num_splits * g * 2;
   const float* pa = part_acc + bk * num_splits * g * vd;
   const int64_t out_row = bk * g * vd;   // (b * H + kh * g) * vd
-  for (int o = threadIdx.x; o < g * vd; o += kCombineThreads) {
+  for (int o = o0 + threadIdx.x; o < o1; o += kCombineThreads) {
     const int gi = o / vd;
     float mx = kNegInf, l = 0.f, a = 0.f;
     for (int s0 = 0; s0 < num_splits; s0 += kCombineBatch) {
@@ -602,17 +650,17 @@ int copy_width(const void* base, int64_t stride, int64_t row_bytes) {
   return w;
 }
 
-template <typename TKV, int kOut>
+template <typename TKV, int kOut, int kMaxHd>
 int launch(int q_bf16, const void* q, const void* k, const void* v,
            const void* k_scale, const void* v_scale,
            const int32_t* block_tables, int bt_stride, const int32_t* lengths,
            int len_stride, float* part_ml, float* part_acc, void* out,
            int batch, int num_kv_heads, int g, int hd, int v_ld, int vd,
            int ps, int m, int pages_per_split, int num_splits, int tile,
-           int smem, float scale, float logit_cap, int window, int chunk,
-           cudaStream_t stream) {
+           int smem, int head_tiles, int tile_heads, float scale,
+           float logit_cap, int window, int chunk, cudaStream_t stream) {
   constexpr int es = sizeof(TKV);
-  auto kernel = paged_attention_kernel<TKV, kOut>;
+  auto kernel = paged_attention_kernel<TKV, kOut, kMaxHd>;
   // the attribute is per device: raise it to the opt-in limit once on
   // each (bit = device id); the launch asks only for what it needs
   static std::atomic<uint64_t> attr_set{0};
@@ -635,19 +683,26 @@ int launch(int q_bf16, const void* q, const void* k, const void* v,
                             static_cast<int64_t>(hd) * es);
   const int wv = copy_width(v, static_cast<int64_t>(v_ld) * es,
                             static_cast<int64_t>(vd) * es);
-  const dim3 grid(num_kv_heads, batch, num_splits);
+  const dim3 grid(num_kv_heads * head_tiles, batch, num_splits);
   kernel<<<grid, kThreads, smem, stream>>>(
       q, q_bf16, static_cast<const TKV*>(k), static_cast<const TKV*>(v),
       static_cast<const __nv_bfloat16*>(k_scale),
       static_cast<const __nv_bfloat16*>(v_scale), block_tables, bt_stride,
       lengths, len_stride, part_ml, part_acc, out, num_kv_heads, g, hd, v_ld,
-      vd, ps, m, pages_per_split, tile, wk, wv, scale, logit_cap, window,
-      chunk);
+      vd, ps, m, pages_per_split, tile, head_tiles, tile_heads, wk, wv, scale,
+      logit_cap, window, chunk);
   err = cudaGetLastError();
   if (err != cudaSuccess || num_splits == 1) return static_cast<int>(err);
-  paged_attention_kernel_combine<<<dim3(num_kv_heads, batch),
-                                   kCombineThreads, 0, stream>>>(
-      part_ml, part_acc, out, q_bf16, num_kv_heads, g, vd, num_splits);
+  if (head_tiles == 1) {
+    paged_attention_kernel_combine<false><<<dim3(num_kv_heads, batch),
+                                            kCombineThreads, 0, stream>>>(
+        part_ml, part_acc, out, q_bf16, num_kv_heads, g, vd, num_splits);
+  } else {
+    const int runs = (g * vd + kCombineThreads - 1) / kCombineThreads;
+    paged_attention_kernel_combine<true><<<dim3(num_kv_heads * runs, batch),
+                                           kCombineThreads, 0, stream>>>(
+        part_ml, part_acc, out, q_bf16, num_kv_heads, g, vd, num_splits);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -661,23 +716,25 @@ extern "C" int paged_attention_smem_optin(int device, int* bytes) {
 }
 
 // dtype codes: 0 = float32, 1 = bfloat16, 2 = int8 (pages only).  The
-// plan (pages_per_split, num_splits, tile and smem, the split block's
-// dynamic shared memory) comes from the wrapper's paged_plan; with
-// num_splits > 1, part_ml / part_acc are fp32 scratch of
-// B * K * num_splits * g * 2 and * vd floats.  logit_cap <= 0, window <= 0
-// and chunk <= 0 mean "off".  Returns the cudaError_t of the launches
-// (0 = success).
+// plan (pages_per_split, num_splits, tile, smem, the split block's
+// dynamic shared memory, and head_tiles tiles of tile_heads query heads a
+// KV head) comes from the wrapper's paged_plan; with num_splits > 1,
+// part_ml / part_acc are fp32 scratch of B * K * num_splits * g * 2 and
+// * vd floats.  logit_cap <= 0, window <= 0 and chunk <= 0 mean "off".
+// Returns the cudaError_t of the launches (0 = success).
 extern "C" int paged_attention_launch(
     int q_dtype, int kv_dtype, const void* q, const void* k, const void* v,
     const void* k_scale, const void* v_scale, const void* block_tables,
     int bt_stride, const void* lengths, int len_stride, void* part_ml,
     void* part_acc, void* out, int batch, int num_kv_heads, int g, int hd,
     int v_ld, int vd, int ps, int m, int pages_per_split, int num_splits,
-    int tile, int smem, float scale, float logit_cap, int window, int chunk,
-    void* stream) {
+    int tile, int smem, int head_tiles, int tile_heads, float scale,
+    float logit_cap, int window, int chunk, void* stream) {
   if (q_dtype < 0 || q_dtype > 1 || pages_per_split < 1 || num_splits < 1
-      || tile < 1 || smem < 1 || hd < 1 || hd > 256 || vd < 1 || vd > v_ld
-      || g * vd > kThreads * kMaxOutPerThread
+      || tile < 1 || smem < 1 || hd < 1 || hd > kWideHd || vd < 1
+      || vd > v_ld || head_tiles < 1 || tile_heads < 1
+      || tile_heads * vd > kThreads * kMaxOutPerThread
+      || head_tiles * tile_heads < g || (head_tiles - 1) * tile_heads >= g
       || (num_splits > 1 && (part_ml == nullptr || part_acc == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto* bt = static_cast<const int32_t*>(block_tables);
@@ -686,20 +743,26 @@ extern "C" int paged_attention_launch(
   auto* pa = static_cast<float*>(part_acc);
   const auto st = static_cast<cudaStream_t>(stream);
   // outputs a thread owns: 1 up to g * vd = 128 (the served MHA shapes),
-  // 4 up to 512, else 16
-  const int outs = g * vd <= kThreads ? 1 : (g * vd <= 4 * kThreads ? 4 : 16);
-#define PA_LAUNCH(TKV, OUT)                                                  \
-  if (outs == OUT)                                                          \
-  return launch<TKV, OUT>(q_dtype, q, k, v, k_scale, v_scale, bt, bt_stride, \
-                          ln, len_stride, ml, pa, out, batch, num_kv_heads,  \
-                          g, hd, v_ld, vd, ps, m, pages_per_split,           \
-                          num_splits, tile, smem, scale, logit_cap, window, \
-                          chunk,                                             \
-                          st)
-#define PA_LAUNCH_OUTS(TKV) \
-  PA_LAUNCH(TKV, 1);        \
-  PA_LAUNCH(TKV, 4);        \
-  PA_LAUNCH(TKV, 16)
+  // 4 up to 512, else 16; rows past kNarrowHd and shapes with head tiles
+  // take the wide form, whose one instantiation owns 16
+  const int n_out = tile_heads * vd;
+  const int outs = hd > kNarrowHd || head_tiles > 1 ? 0
+                   : n_out <= kThreads     ? 1
+                   : n_out <= 4 * kThreads ? 4
+                                           : 16;
+#define PA_LAUNCH(TKV, OUT, HD)                                              \
+  if (outs == (HD == kWideHd ? 0 : OUT))                                    \
+  return launch<TKV, OUT, HD>(q_dtype, q, k, v, k_scale, v_scale, bt,        \
+                              bt_stride, ln, len_stride, ml, pa, out, batch, \
+                              num_kv_heads, g, hd, v_ld, vd, ps, m,          \
+                              pages_per_split, num_splits, tile, smem,       \
+                              head_tiles, tile_heads, scale, logit_cap,      \
+                              window, chunk, st)
+#define PA_LAUNCH_OUTS(TKV)       \
+  PA_LAUNCH(TKV, 1, kNarrowHd);   \
+  PA_LAUNCH(TKV, 4, kNarrowHd);   \
+  PA_LAUNCH(TKV, 16, kNarrowHd);  \
+  PA_LAUNCH(TKV, 16, kWideHd)
   if (kv_dtype == 0) { PA_LAUNCH_OUTS(float); }
   if (kv_dtype == 1) { PA_LAUNCH_OUTS(__nv_bfloat16); }
   if (kv_dtype == 2) { PA_LAUNCH_OUTS(int8_t); }

@@ -9,12 +9,15 @@ cannot serve raises instead of computing elsewhere.
 plain path does not count), so a run can show that its main path went
 through the kernels; K3's wrapper also counts each launch under the
 variant it launched (``flash_attention_wgmma`` or
-``flash_attention_simt``).  K2's two forms both count under
-``mux_score``.  A call made while its thread captures a CUDA graph
-launches nothing: inside :func:`tally_launches` it adds to that
-capture's tally instead, and each replay of the graph adds the tally to
-``launches`` (``repro_torch.graphs.CudaGraphed``).  Counter reads and
-resets belong to the caller (``reset_launches``).
+``flash_attention_simt``), and K1's also under the form of its operands
+where it is not the plain one: ``paged_attention_int8`` (int8 pages and
+their scales) and ``paged_attention_latent`` (absorbed MLA: V read as
+the leading ``v_dim`` features of the K pages themselves).  K2's two
+forms both count under ``mux_score``.  A call made while its thread
+captures a CUDA graph launches nothing: inside :func:`tally_launches`
+it adds to that capture's tally instead, and each replay of the graph
+adds the tally to ``launches`` (``repro_torch.graphs.CudaGraphed``).
+Counter reads and resets belong to the caller (``reset_launches``).
 """
 from __future__ import annotations
 
@@ -29,7 +32,8 @@ from repro_torch.kernels.paged_attention import (paged_attention_cuda,
                                                  paged_attention_plain)
 from repro_torch.kernels.selective_scan import selective_scan_cuda
 
-launches: Dict[str, int] = {"paged_attention": 0, "mux_score": 0,
+launches: Dict[str, int] = {"paged_attention": 0, "paged_attention_int8": 0,
+                             "paged_attention_latent": 0, "mux_score": 0,
                              "flash_attention": 0, "flash_attention_wgmma": 0,
                              "flash_attention_simt": 0, "selective_scan": 0}
 
@@ -112,7 +116,12 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
                                      lengths, **kw)
     out = paged_attention_cuda(q, k_pages, v_pages, block_tables, lengths,
                                prefetch=prefetch, **kw)
-    _counts()["paged_attention"] += 1
+    counts = _counts()
+    counts["paged_attention"] += 1
+    if k_scales is not None:
+        counts["paged_attention_int8"] += 1
+    if v_dim is not None and v_pages is k_pages:
+        counts["paged_attention_latent"] += 1
     return out
 
 

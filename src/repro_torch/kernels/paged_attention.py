@@ -28,8 +28,9 @@ import torch
 from repro_torch.kernels import build, ref
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-MAX_HEAD_DIM = 256           # csrc kMaxChunks: a K row in <= 32 lanes
-MAX_GROUP_OUT = 2048         # csrc kThreads * kMaxOutPerThread
+MAX_HEAD_DIM = 512           # csrc kWideHd (rows past 256: the wide form)
+MAX_GROUP_OUT = 2048         # csrc kThreads * kMaxOutPerThread: a block's
+                             # (query head, feature) outputs
 SPLIT_BYTES = 64 * 1024      # K/V bytes a split reads at most
 TILE_BYTES = 16 * 1024       # bytes of one staged tile
 STAGES = 2                   # csrc kStages: tiles in the cp.async ring
@@ -111,7 +112,7 @@ def _launcher():
         fn = lib.paged_attention_launch
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fn.argtypes = ([ci, ci] + [vp] * 6 + [ci, vp, ci, vp, vp, vp]
-                       + [ci] * 12 + [cf, cf, ci, ci, vp])
+                       + [ci] * 14 + [cf, cf, ci, ci, vp])
         fn.restype = ci
         _lib = fn
     return _lib
@@ -126,11 +127,30 @@ class PagedPlan(NamedTuple):
     table in ``num_splits`` runs of ``pages_per_split`` pages, one block
     each, staging ``tile`` tokens at a time; ``smem_bytes`` is a split
     block's dynamic shared memory.  With more than one split a combine
-    pass merges the partials."""
+    pass merges the partials.  Where a KV head's group of query heads
+    has more (head, feature) outputs than a block owns
+    (``MAX_GROUP_OUT``: absorbed MLA, 40 heads x v_dim 256), its heads
+    are cut into ``head_tiles`` tiles of :func:`tile_heads` heads, one
+    block each, which read the same K/V rows; every other shape has one
+    tile."""
     pages_per_split: int
     num_splits: int
     tile: int
     smem_bytes: int
+    head_tiles: int = 1
+
+
+def head_tiling(group: int, v_dim: int) -> int:
+    """Head tiles of a KV head's ``group`` query heads: the fewest whose
+    heads' ``v_dim`` outputs each fit ``MAX_GROUP_OUT`` (1 where the
+    whole group fits)."""
+    per_block = max(1, MAX_GROUP_OUT // v_dim)
+    return -(-group // per_block)
+
+
+def tile_heads(group: int, head_tiles: int) -> int:
+    """Query heads a block owns (the last tile may own fewer)."""
+    return -(-group // head_tiles)
 
 
 def _round16(x: int) -> int:
@@ -160,17 +180,19 @@ def paged_plan(batch: int, kv_heads: int, group: int, max_pages: int,
     so a decode step reads nothing back from the card): a split reads
     at most ``SPLIT_BYTES`` of K/V for one (row, KV head), and is cut
     shorter where fewer than ``BLOCKS_PER_SM`` blocks on each of the
-    ``sms`` SMs would exist;
+    ``sms`` SMs would exist (a head tile is a block of its own);
     a tile stages about ``TILE_BYTES``.  Both shrink until a block's
     shared memory fits in ``smem_limit`` bytes.  Cached per shape."""
+    tiles = head_tiling(group, v_dim)
+    heads = tile_heads(group, tiles)
     per_token = (head_dim + v_dim) * itemsize + (4 if quantized else 0)
     pps = max(1, SPLIT_BYTES // (page_size * per_token))
-    fill = max_pages * batch * kv_heads // (BLOCKS_PER_SM * sms)
+    fill = max_pages * batch * kv_heads * tiles // (BLOCKS_PER_SM * sms)
     pps = max(1, min(pps, fill, max_pages), -(-max_pages // MAX_SPLITS))
     row = max(_round16(head_dim * itemsize), _round16(v_dim * itemsize))
     tile = max(1, min(TILE_BYTES // row, pps * page_size))
     while True:
-        smem = split_smem_bytes(itemsize, group, head_dim, v_dim, page_size,
+        smem = split_smem_bytes(itemsize, heads, head_dim, v_dim, page_size,
                                 pps, tile, quantized)
         if smem <= smem_limit or (tile == 1 and pps == 1):
             break
@@ -181,7 +203,7 @@ def paged_plan(batch: int, kv_heads: int, group: int, max_pages: int,
     if smem > smem_limit:
         _refuse(f"{smem} bytes of shared memory > {smem_limit} (group "
                 f"{group}, head_dim {head_dim}, page {page_size})")
-    return PagedPlan(pps, max(1, -(-max_pages // pps)), tile, smem)
+    return PagedPlan(pps, max(1, -(-max_pages // pps)), tile, smem, tiles)
 
 
 def scratch_floats(plan: PagedPlan, batch: int, kv_heads: int, group: int,
@@ -254,8 +276,8 @@ def paged_attention_cuda(q, k_pages, v_pages, block_tables, lengths, *,
         _refuse(f"v_dim {vd} outside (0, {v_ld}]")
     if hd > MAX_HEAD_DIM:
         _refuse(f"head_dim {hd} > {MAX_HEAD_DIM}")
-    if g * vd > MAX_GROUP_OUT:
-        _refuse(f"group * v_dim = {g * vd} > {MAX_GROUP_OUT}")
+    if vd > MAX_GROUP_OUT:
+        _refuse(f"v_dim {vd} > {MAX_GROUP_OUT}")
     if q.dtype not in (torch.float32, torch.bfloat16):
         _refuse(f"q dtype {q.dtype} not float32/bfloat16")
     if k_pages.dtype not in _DTYPE_CODE or v_pages.dtype != k_pages.dtype:
@@ -313,7 +335,8 @@ def paged_attention_cuda(q, k_pages, v_pages, block_tables, lengths, *,
         v_scales.data_ptr() if quantized else None,
         bt_ptr, bt_stride, len_ptr, len_stride, ml_ptr, acc_ptr,
         out.data_ptr(), b, kk, g, hd, v_ld, vd, ps, m, plan.pages_per_split,
-        plan.num_splits, plan.tile, plan.smem_bytes, float(scale_),
+        plan.num_splits, plan.tile, plan.smem_bytes, plan.head_tiles,
+        tile_heads(g, plan.head_tiles), float(scale_),
         float(logit_cap) if logit_cap is not None else 0.0,
         int(window) if window is not None else 0,
         int(chunk) if chunk is not None else 0,

@@ -1,12 +1,15 @@
-"""Pattern-tiled decoder LM: dense self-attention blocks and Mamba-1
+"""Pattern-tiled decoder LM: dense self-attention, MLA and Mamba-1
 blocks, on the paged and the ring cache paths.
 
 Port of ``repro.models.transformer`` for configs whose pattern holds
-``mixer="attn"`` layers with a dense (or no) MLP — olmo-1b and
-codeqwen1.5-7b among them — or ``mixer="mamba"`` layers with no MLP
-(falcon-mamba-7b).  MLA, MoE, cross-attention, codebook heads,
-sinusoidal positions and ``verify_paged`` are not ported yet and raise
-``NotImplementedError``.
+``mixer="attn"`` or ``mixer="mla"`` layers with a dense (or no) MLP —
+olmo-1b, codeqwen1.5-7b and minicpm3-4b among them — or
+``mixer="mamba"`` layers with no MLP (falcon-mamba-7b).  MoE,
+cross-attention, codebook heads, sinusoidal positions and
+``verify_paged`` are not ported yet and raise ``NotImplementedError``.
+An MLA layer caches its latent (``kv_lora + d_rope`` features a token,
+one "KV head") in bf16 when an int8 pool is asked for, as the JAX
+package does: latent quantisation is not supported.
 
 Layout: as in the JAX package, the params of pattern position i are
 stacked over the G = num_layers / len(pattern) groups (leaves
@@ -37,6 +40,7 @@ from repro_torch.device import DeviceLike, generator_on, resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as ssm
+from repro_torch.models import mla as mla_mod
 from repro_torch.models.layers import (apply_mlp, apply_norm, apply_rope,
                                        dense_init, embed_init, init_mlp,
                                        init_norm, softcap)
@@ -46,13 +50,14 @@ Params = Dict[str, Any]
 
 def _check_supported(cfg: ModelConfig) -> None:
     for spec in cfg.pattern:
-        attn_ok = spec.mixer == "attn" and spec.mlp in ("dense", "none")
+        attn_ok = (spec.mixer in ("attn", "mla")
+                   and spec.mlp in ("dense", "none"))
         mamba_ok = spec.mixer == "mamba" and spec.mlp == "none"
         if not (attn_ok or mamba_ok):
             raise NotImplementedError(
-                f"{cfg.name}: the port runs dense self-attention blocks and "
-                f"mamba blocks without an MLP only, got mixer={spec.mixer!r} "
-                f"mlp={spec.mlp!r}")
+                f"{cfg.name}: the port runs dense self-attention and MLA "
+                f"blocks and mamba blocks without an MLP only, got "
+                f"mixer={spec.mixer!r} mlp={spec.mlp!r}")
     if cfg.num_codebooks or cfg.pos_embed not in ("rope", "none"):
         raise NotImplementedError(
             f"{cfg.name}: codebook heads and sinusoidal positions are not "
@@ -72,6 +77,27 @@ def _init_layer(gen, spec: LayerSpec, cfg: ModelConfig, dt, dev) -> Params:
                     ssm_state=cfg.ssm_state, d_conv=cfg.d_conv,
                     dt_rank=cfg.dt_rank, dtype=dt, device=dev)}
     v_hd = cfg.v_head_dim or cfg.head_dim
+    if spec.mixer == "mla":
+        a = mla_mod.init_mla(
+            gen, d_model=d, num_heads=cfg.num_heads, q_lora=cfg.q_lora,
+            kv_lora=cfg.kv_lora, d_nope=cfg.d_nope, d_rope=cfg.d_rope,
+            v_head_dim=v_hd, dtype=dt, device=dev)
+    else:
+        a = _init_attention(gen, cfg, v_hd, dt, dev)
+    p: Params = {"norm1": init_norm(d, cfg.norm, dt, device=dev), "attn": a}
+    if cfg.use_post_norm:
+        p["norm1_post"] = init_norm(d, cfg.norm, dt, device=dev)
+    if spec.mlp == "dense":
+        p["norm2"] = init_norm(d, cfg.norm, dt, device=dev)
+        if cfg.use_post_norm:
+            p["norm2_post"] = init_norm(d, cfg.norm, dt, device=dev)
+        p["mlp"] = init_mlp(gen, d, cfg.d_ff, gated=cfg.gated_mlp, dtype=dt,
+                            device=dev)
+    return p
+
+
+def _init_attention(gen, cfg: ModelConfig, v_hd: int, dt, dev) -> Params:
+    d = cfg.d_model
     a: Params = {
         "wq": dense_init(gen, d, cfg.num_heads * cfg.head_dim, dt, device=dev),
         "wk": dense_init(gen, d, cfg.num_kv_heads * cfg.head_dim, dt,
@@ -89,16 +115,7 @@ def _init_layer(gen, spec: LayerSpec, cfg: ModelConfig, dt, dev) -> Params:
     if cfg.qk_norm:
         a["q_norm"] = init_norm(cfg.head_dim, "rmsnorm", dt, device=dev)
         a["k_norm"] = init_norm(cfg.head_dim, "rmsnorm", dt, device=dev)
-    p: Params = {"norm1": init_norm(d, cfg.norm, dt, device=dev), "attn": a}
-    if cfg.use_post_norm:
-        p["norm1_post"] = init_norm(d, cfg.norm, dt, device=dev)
-    if spec.mlp == "dense":
-        p["norm2"] = init_norm(d, cfg.norm, dt, device=dev)
-        if cfg.use_post_norm:
-            p["norm2_post"] = init_norm(d, cfg.norm, dt, device=dev)
-        p["mlp"] = init_mlp(gen, d, cfg.d_ff, gated=cfg.gated_mlp, dtype=dt,
-                            device=dev)
-    return p
+    return a
 
 
 def _stack_into(dst: Params, g: int, src: Params) -> None:
@@ -158,8 +175,11 @@ def init_caches(cfg: ModelConfig, batch: Optional[int] = None,
     ``num_pages`` / ``page_size`` for the paged-pool variant instead
     (pages shared across requests, addressed through block tables;
     ``batch`` / ``seq_len`` are then ignored; mamba layers have no paged
-    form).  ``dtype`` defaults to ``cfg.kv_cache_dtype`` (int8 adds
-    bf16 scale slabs); a mamba state ``h`` is fp32 whatever it is."""
+    form).  An MLA layer caches its latent as one KV head of width
+    ``kv_lora + d_rope`` (V: a slab of width 1 that nothing reads, as in
+    the JAX package).  ``dtype`` defaults to ``cfg.kv_cache_dtype`` (int8
+    adds bf16 scale slabs; an MLA latent stays bf16 instead); a mamba
+    state ``h`` is fp32 whatever it is."""
     _check_supported(cfg)
     dev = resolve_device(device)
     dtype = dtype if dtype is not None else cfg.kv_cache_dtype
@@ -169,14 +189,23 @@ def init_caches(cfg: ModelConfig, batch: Optional[int] = None,
     g = cfg.num_groups
     caches: Params = {}
     for i, spec in enumerate(cfg.pattern):
-        if paged and spec.mixer != "attn":
+        if paged and spec.mixer not in ("attn", "mla"):
             raise NotImplementedError(
-                f"paged KV cache supports attn mixers, got {spec.mixer!r} "
-                f"(mamba state is per-request, not token-paged)")
+                f"paged KV cache supports attn/mla mixers, got "
+                f"{spec.mixer!r} (mamba state is per-request, not "
+                f"token-paged)")
+        if spec.mixer == "mla":
+            # latent-cache quantisation unsupported: keep bf16 for MLA
+            heads, width, v_width = 1, cfg.kv_lora + cfg.d_rope, 1
+            layer_dtype = torch.bfloat16 if dtype == torch.int8 else dtype
+        else:
+            heads, width, v_width = (cfg.num_kv_heads, cfg.head_dim,
+                                     cfg.v_head_dim)
+            layer_dtype = dtype
         if paged:
             one = attn.init_paged_kv_cache(
-                num_pages * g, page_size, cfg.num_kv_heads, cfg.head_dim,
-                v_head_dim=cfg.v_head_dim, dtype=dtype, device=dev)
+                num_pages * g, page_size, heads, width, v_head_dim=v_width,
+                dtype=layer_dtype, device=dev)
             caches[f"p{i}"] = {k: v.reshape((g, num_pages) + v.shape[1:])
                                for k, v in one.items()}
             continue
@@ -186,11 +215,11 @@ def init_caches(cfg: ModelConfig, batch: Optional[int] = None,
                                        d_conv=cfg.d_conv, dtype=dtype,
                                        device=dev)
         else:
-            cap = attn.attention_span(spec.attn_kind, seq_len,
-                                      window=cfg.window, chunk=cfg.chunk)
-            one = attn.init_kv_cache(g * batch, cap, cfg.num_kv_heads,
-                                     cfg.head_dim, v_head_dim=cfg.v_head_dim,
-                                     dtype=dtype, device=dev)
+            cap = (seq_len if spec.mixer == "mla" else attn.attention_span(
+                spec.attn_kind, seq_len, window=cfg.window, chunk=cfg.chunk))
+            one = attn.init_kv_cache(g * batch, cap, heads, width,
+                                     v_head_dim=v_width, dtype=layer_dtype,
+                                     device=dev)
             one["pos"] = one["pos"].repeat(g)
         caches[f"p{i}"] = {k: v.reshape((g, -1) + v.shape[1:])
                            for k, v in one.items()}
@@ -211,7 +240,7 @@ def _mixer_forward(p: Params, spec: LayerSpec, cfg: ModelConfig, x, *,
                    positions, mode: str, pos=None, cache=None,
                    block_tables=None, q_offset=None, insert_from=None,
                    prefetch=None):
-    """Self-attention or mamba mixer.  Returns the mixer output; a
+    """Self-attention, MLA or mamba mixer.  Returns the mixer output; a
     ``cache`` (ring, paged or mamba state) is written in place.
     ``block_tables`` (B, M) switches the attention cache path to the
     paged pool; in decode mode ``pos`` is then per-row (B,), on the ring
@@ -227,6 +256,20 @@ def _mixer_forward(p: Params, spec: LayerSpec, cfg: ModelConfig, x, *,
         if mode == "decode":
             return ssm.mamba_decode(p["mixer"], x, cache, **kw)[0]
         return ssm.mamba_forward(p["mixer"], x, cache=cache, **kw)[0]
+
+    if spec.mixer == "mla":
+        kw = dict(num_heads=cfg.num_heads, kv_lora=cfg.kv_lora,
+                  d_nope=cfg.d_nope, d_rope=cfg.d_rope,
+                  v_head_dim=cfg.v_head_dim or cfg.head_dim,
+                  rope_theta=cfg.rope_theta)
+        if mode == "decode":
+            return mla_mod.mla_decode(p["attn"], x, cache, pos,
+                                      block_tables=block_tables,
+                                      prefetch=prefetch, **kw)[0]
+        return mla_mod.mla_prefill(p["attn"], x, positions=positions,
+                                   cache=cache, block_tables=block_tables,
+                                   q_offset=q_offset,
+                                   insert_from=insert_from, **kw)[0]
 
     b = x.shape[0]
     ap = p["attn"]

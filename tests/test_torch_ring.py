@@ -1,8 +1,9 @@
 """The port's ring-cache path against the JAX package: ``prefill`` +
 ring ``decode_step``, ``Engine.generate`` and ``launch.serve``.
 
-* falcon-mamba-7b smoke (Mamba blocks, K4's plain scan on the CPU) and
-  olmo-1b smoke (attention blocks, ring KV caches) with
+* falcon-mamba-7b smoke (Mamba blocks, K4's plain scan on the CPU),
+  olmo-1b smoke (attention blocks, ring KV caches) and minicpm3-4b
+  smoke (MLA blocks, ring latent caches, absorbed decode) with
   ``compute_dtype="float32"`` and the same converted weights: the
   prefill logits and each teacher-forced ring decode step's logits
   within 1e-4, and the caches after them.  Both packages keep the ring
@@ -34,7 +35,7 @@ from repro_torch.models import transformer as ttf
 from repro_torch.serving.engine import Engine, ServeConfig
 
 LOGIT_TOL = dict(atol=1e-4, rtol=0)
-ARCHS = ("falcon-mamba-7b", "olmo-1b")
+ARCHS = ("falcon-mamba-7b", "olmo-1b", "minicpm3-4b")
 
 
 @functools.lru_cache(maxsize=None)
@@ -181,7 +182,7 @@ def test_paged_caches_refuse_mamba_and_unported_mixers_raise():
     cfg = get_smoke_config("falcon-mamba-7b")
     with pytest.raises(NotImplementedError, match="paged"):
         ttf.init_caches(cfg, num_pages=4, page_size=4, device="cpu")
-    for spec in (LayerSpec(mixer="mla"), LayerSpec(mlp="moe"),
+    for spec in (LayerSpec(mixer="cross_attn"), LayerSpec(mlp="moe"),
                  LayerSpec(mixer="mamba", mlp="dense")):
         bad = ModelConfig(name="bad", arch_type="dense", num_layers=1,
                           d_model=8, d_ff=8, vocab_size=8, pattern=(spec,))
