@@ -86,11 +86,31 @@ Phases, each of which must pass:
    a call; K2's head form at the served probe shape eager, as a CUDA
    graph and in host microseconds a call, beside the same composed
    plain ops eager and as a graph, and its meta form.
+   K1 and K3 at gemma2-27b's shapes (g = 2, logit cap 50, query scale
+   144^-1/2): K1 at B = 8, H = 32 over K = 16, hd 128, bf16 pages of
+   64, 128 pages a row, window 4096, rows 17-5100 long (three past the
+   window), against its plain version (2e-2, per element and per
+   output vector), both bitwise checks, a CUDA graph's replay bitwise
+   equal to the eager call, the 5100-token row changed by the window;
+   K3 at B = 1, S = T = 5120 (a 5100-token prompt padded to page 64),
+   H = 32 over K = 16, with the window and without, against its plain
+   version (2e-2, per element and per output vector), the rows past
+   4096 changed by the window; both again on q scaled 16x, where the
+   cap binds, against their plain versions per output vector and
+   changed by the cap; both timed eager and as CUDA graphs beside
+   their bounds (the visible tokens / pairs) and their plain versions,
+   K3 also beside torch's ``flex_attention`` (compiled; a softcap
+   ``score_mod``, a causal / sliding-window block mask, grouped heads;
+   timed only, its output held to the plain version first); K1 has no
+   library call (none pages K/V through block tables).
    A tiny fp32 model's prefill (through K3's SIMT variant) and
    teacher-forced decode (through K1) on the card are held against the
-   same model on the CPU, and so are a tiny fp32 MLA model's at
+   same model on the CPU (its swa layer's windowed launches counted),
+   and so are a tiny fp32 MLA model's at
    minicpm3-4b's attention widths (K1's latent form, fp32 pages, five
-   head tiles) and a tiny fp32 falcon-mamba's
+   head tiles), a tiny fp32 olmoe-shaped MoE model's (qk-norm, 4
+   experts top-2: its 8-token prefill drops assignments at capacity,
+   decode is dropless) and a tiny fp32 falcon-mamba's
    ``prefill`` (through K4) and teacher-forced ring decode.
 3. The direct served path at full width: olmo-1b and codeqwen1.5-7b at
    their published configs (depth uncut) with random bf16 weights
@@ -243,7 +263,34 @@ Phases, each of which must pass:
    ring steps against eager).  With ``--profile``, one minicpm3-4b
    1024-token prefill and a graphed decode step of each engine under
    ``torch.profiler``, and phase 6's ring profile.
-10. Last, since a ``torch.profiler`` window slows the host's later
+10. The zoo's remaining single-card models served at their published
+   configs (random bf16 weights), each zoo through phase 9's flow
+   (``serve_zoo``: the decode graphs' checks, 8 prompts on the direct
+   path graphed then eager, 16 through ``PagedLLMScheduler`` at Poisson
+   4/s with every request's tokens equal to the direct path's, a
+   1024-token prefill whole and in chunks of 256 on each engine; K1 =
+   layers x steps and K3 = layers x whole-prompt prefills, each also
+   counted in the swa layers alone).  Zoo A: olmo-1b (384 pages) and
+   gemma2-27b (46 layers, d_model 4608, 32 heads over 16 KV heads,
+   window 4096 on alternate layers, attention and final softcaps; 320
+   pages of 64, 7.7 GB), both at ``max_len`` 8192.  Then on gemma2's
+   engine alone: prompts of 4608 and 5100 tokens admitted whole and
+   decoded 8 tokens together (K3 and K1 launched with the window in
+   each of its 23 swa layers, checked), and the 5100-token prompt on
+   the paged path against the same engine's ``generate`` (the swa
+   layers' 4096-slot ring wraps): first-token logits within 2e-2 and
+   the same tokens, or the reason logged; logits a tenth of their norm
+   apart fail.  The zoo is freed (under 1 GB left).  Zoo B: olmo-1b and
+   olmoe-1b-7b (16 layers, 64 experts top-8, qk-norm; the reference's
+   gather dispatch, dropless in decode), 512 pages each, ``max_len``
+   2048; its chunked prefill routes each chunk on its own (capacity
+   follows the chunk), so that difference is logged, not held.  Last,
+   olmoe on the launcher's ring path (2 x 512 tokens, 16 greedy; phase
+   6's checks).  Each model's weights-read time (its weight bytes a
+   step over 3.35 TB/s) is printed beside its step.  With
+   ``--profile``, a 1024-token prefill of each zoo's larger model and a
+   graphed decode step of each engine.
+11. Last, since a ``torch.profiler`` window slows the host's later
    launches: the whole probe (weights + select) at B=1, S=64, eager
    against graphed: ms a call, host microseconds a call, and device
    busy ms and launches a probe from ``torch.profiler``, whose rows
@@ -263,7 +310,9 @@ Phases, each of which must pass:
 Output: progress lines, then the ``{"kernels": [...]}`` JSON line (the
 launches are phase 4's for K1-K3 and phase 6's falcon-mamba run for K4;
 K1's and K3's entries also have phase 9's launches, ``phase9_launches``,
-and their times at the MLA shapes, ``mla_shape`` / ``mla_shapes``;
+and their times at the MLA shapes, ``mla_shape`` / ``mla_shapes``, and
+phase 10's scheduler launches by zoo, ``phase10_launches``, and their
+rows at gemma2's shapes, ``g2_shape``;
 K2's entry also has its meta form's launches on phase 7's image path and
 phase 8's served trained muxes, ``meta_launches``, and its times at the
 served shapes, ``meta_form``),
@@ -293,7 +342,12 @@ figures, the served trained muxes, the profiled zoo step), an
 ``{"mla_phase": ...}`` line (phase 9: the decode graphs' checks, the
 pools, per model the admission ms, TTFT p50 / p99, decode tokens/s and
 median step ms graphed / eager, the launches, the chunked prefills,
-the ring path, the phase's wall seconds), the
+the ring path, the phase's wall seconds), a ``{"zoo_phase": ...}``
+line (phase 10 by zoo: memory after the build, per model the admission
+ms, TTFT p50 / p99, decode tokens/s direct and through the scheduler,
+median step ms graphed / eager beside its weights-read ms, the chunked
+prefills; gemma2's long prompts' prefill ms and launches and its ring
+against paged difference; olmoe's ring path; the wall seconds), the
 card's name and power limit (nvidia-smi), and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the run
 exits non-zero without that last line.  It needs one CUDA card and a
@@ -323,6 +377,11 @@ F32_FLASH_TOL = 1e-4
 # 2e-2 |plain| (bf16 rounding of P and of the output is relative; the
 # absolute term covers entries near 0)
 BF16_FLASH_REL = (4e-3, 2e-2)
+# K1 / K3 bf16, per output vector (one query row of one head): ||kernel -
+# plain|| <= 1e-2 ||plain||.  bf16 rounding of the output is 2^-9 of it;
+# where a softmax spreads over thousands of keys the outputs sit near
+# 0.02, the size of the absolute 2e-2 above, which then holds nothing
+BF16_ROW_REL_L2 = 1e-2
 F32_MUX_TOL = 1e-5
 SCAN_RTOL = SCAN_ATOL = 2e-5     # K4 in fp32 arithmetic, as the JAX sweep
 MODEL_TOL = 1e-3                 # fp32 logits, card vs CPU
@@ -527,6 +586,73 @@ def paged_plan_of(inp, v_dim=None) -> str:
     return f"{p.num_splits}x{p.pages_per_split}p tile {p.tile}{tiles}"
 
 
+def bf16_errors(got, want) -> dict:
+    """``got`` against ``want``: the max abs error, the worst element's
+    share of its ``BF16_FLASH_REL`` limit, and the worst relative L2
+    error of one output vector (the last axis)."""
+    d, w = got.float() - want.float(), want.float()
+    rel_abs, rel = BF16_FLASH_REL
+    return {"max_abs_err": d.abs().max().item(),
+            "rel_ratio": (d.abs() / (rel_abs + rel * w.abs())).max().item(),
+            "row_rel_l2": (d.norm(dim=-1) / w.norm(dim=-1).clamp_min(1e-30)
+                           ).max().item()}
+
+
+def k1_four_ways(args, kw, pf) -> tuple:
+    """K1 on one input four ways: separate operands, the same call
+    again, the combined operand (``pf``, :func:`decode_prefetch`'s) and
+    one replay of that call captured in a CUDA graph.  Returns the first
+    output and whether each other one equals it bit for bit."""
+    import torch
+    from repro_torch.kernels.paged_attention import paged_attention_cuda
+    sep = paged_attention_cuda(*args, **kw)
+    again = paged_attention_cuda(*args, **kw)
+    comb = paged_attention_cuda(*args, prefetch=pf, **kw)
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        paged_attention_cuda(*args, prefetch=pf, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        captured = paged_attention_cuda(*args, prefetch=pf, **kw)
+    graph.replay()
+    torch.cuda.synchronize()
+    return sep, {"combined==separate": torch.equal(sep, comb),
+                 "repeat": torch.equal(sep, again),
+                 "graph==eager": torch.equal(sep, captured)}
+
+
+def k1_timed(copies, kw, *, iters: int, plain_iters: int) -> dict:
+    """K1 with ``kw`` over the rotated input ``copies``: eager
+    (``time_cuda``, ``iters`` calls), as a CUDA graph (half as many),
+    the plain version, the wrapper's host microseconds a call, and the
+    bound's two parts (:func:`paged_bound_parts` on the first copy, at
+    ``kw``'s ``v_dim`` and window) with the larger of them."""
+    from repro_torch.kernels.paged_attention import (decode_prefetch,
+                                                     paged_attention_cuda,
+                                                     paged_attention_plain)
+    calls = [paged_call(c, kw) for c in copies]
+    pfs = [decode_prefetch(c["bt"], c["lengths"]) for c in copies]
+    n = len(copies)
+
+    def kernel(i):
+        a, k = calls[i % n]
+        return paged_attention_cuda(*a, prefetch=pfs[i % n], **k)
+
+    def plain(i):
+        a, k = calls[i % n]
+        return paged_attention_plain(*a, **k)
+    t_bytes, t_ops = paged_bound_parts(copies[0], kw.get("v_dim"),
+                                       kw.get("window"))
+    return {"copies": n, "ms": time_cuda(kernel, iters=iters),
+            "graph_ms": time_cuda_graph(kernel, iters=iters // 2),
+            "plain_ms": time_cuda(plain, iters=plain_iters),
+            "host_us": host_us(kernel), "bytes_ms": t_bytes, "ops_ms": t_ops,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
 def check_paged_attention(dev) -> float:
     """K1 over page dtypes x GQA groups x variants: short rows at page
     16 (M=16), long rows at page 64 (M=32: lengths 0, 1, 63, 64, 65,
@@ -599,15 +725,16 @@ def served_paged_shape(dev, *, h: int, copies: int = 1, lengths=None):
                          q_dtype=torch.bfloat16) for _ in range(copies)]
 
 
-def paged_bound_parts(inp, v_dim=None) -> tuple:
-    """(bytes ms, operations ms) of one K1 call on these inputs, which
-    have no window or chunk, so each row's query sees its whole length
-    and the kernel reads exactly those tokens.  Bytes: the visible
-    tokens' K/V (and int8 scales) once per (row, kv head) — where V is
-    the leading ``v_dim`` features of the K slab (absorbed MLA) the slab
-    once — the page ids of the pages holding them and each row's length,
-    q and out, over HBM bandwidth.  Operations: 2*(hd+vd) FLOPs per
-    (query head, visible token) over the bf16 rate."""
+def paged_bound_parts(inp, v_dim=None, window=None) -> tuple:
+    """(bytes ms, operations ms) of one K1 call on these inputs (no
+    chunk): each row's query sees its last ``min(length, window)``
+    tokens (all of them without a window) and the kernel reads exactly
+    those.  Bytes: the visible tokens' K/V (and int8 scales) once per
+    (row, kv head) — where V is the leading ``v_dim`` features of the K
+    slab (absorbed MLA) the slab once — the page ids of the pages
+    holding them and each row's length, q and out, over HBM bandwidth.
+    Operations: 2*(hd+vd) FLOPs per (query head, visible token) over
+    the bf16 rate."""
     import torch
     q, k, v = inp["q"], inp["k"], inp["v"]
     b, h, hd = q.shape
@@ -619,19 +746,13 @@ def paged_bound_parts(inp, v_dim=None) -> tuple:
     if k.dtype == torch.int8:
         per_token += kk * 2 * 2          # two bf16 scales per kv head
     lengths = inp["lengths"].tolist()
-    tokens = sum(lengths)
-    pages = sum(-(-n // ps) for n in lengths)
+    first = [max(0, n - window) if window else 0 for n in lengths]
+    tokens = sum(n - f for n, f in zip(lengths, first))
+    pages = sum(-(-n // ps) - f // ps for n, f in zip(lengths, first))
     byts = (tokens * per_token + 4 * (pages + b)
             + (q.numel() + b * h * vd) * q.element_size())
     flops = 2 * h * (hd + vd) * tokens
     return byts / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
-
-
-def paged_bound_ms(inp, v_dim=None) -> tuple:
-    """(bound ms, bound_by) of one K1 call: the larger of
-    :func:`paged_bound_parts`."""
-    t_bytes, t_ops = paged_bound_parts(inp, v_dim)
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
 # K1's timed shapes: (name, heads, lengths or None for the served mix)
@@ -646,10 +767,9 @@ def time_paged_attention(dev) -> dict:
     time (``time_cuda``, the method of every earlier row), the same
     calls captured in a CUDA graph (``time_cuda_graph``: the device's
     time, and proof that K1 captures), the bound, the plain version and
-    the wrapper's host microseconds a call.  Enough input copies rotate
-    that their pages exceed the 50 MB L2.  Returns olmo's numbers and a
-    row per shape."""
-    import torch
+    the wrapper's host microseconds a call (:func:`k1_timed`).  Enough
+    input copies rotate that their pages exceed the 50 MB L2.  Returns
+    olmo's numbers and a row per shape."""
     from repro_torch.kernels.paged_attention import (decode_prefetch,
                                                      paged_attention_cuda,
                                                      paged_attention_plain)
@@ -666,25 +786,13 @@ def time_paged_attention(dev) -> dict:
         copies = [one] + served_paged_shape(
             dev, h=h, lengths=lengths,
             copies=max(1, -(-160_000_000 // pool_bytes) - 1))
-        pfs = [decode_prefetch(c["bt"], c["lengths"]) for c in copies]
-        n = len(copies)
-
-        def kernel(i):
-            c = copies[i % n]
-            return paged_attention_cuda(c["q"], c["k"], c["v"], c["bt"],
-                                        c["lengths"], prefetch=pfs[i % n])
-        row = {"shape": name, "copies": n, "max_abs_err": err,
-               "ms": time_cuda(kernel, iters=200),
-               "graph_ms": time_cuda_graph(kernel, iters=100),
-               "plain_ms": time_cuda(lambda i: paged_attention_plain(
-                   *paged_call(copies[i % n], {})[0]), iters=20),
-               "host_us": host_us(kernel)}
-        row["bound_ms"], row["bound_by"] = paged_bound_ms(one)
+        row = {"shape": name, "max_abs_err": err,
+               **k1_timed(copies, {}, iters=200, plain_iters=20)}
         log(f"K1 time at {name} hd=128 page=64 bf16: kernel {row['ms']:.4f} "
             f"ms, as a CUDA graph {row['graph_ms']:.4f} ms, bound "
             f"{row['bound_ms']:.4f} ms ({row['bound_by']}), plain "
             f"{row['plain_ms']:.4f} ms, host {row['host_us']:.1f} us a call, "
-            f"max_err {err:.3e}, {n} rotated copies")
+            f"max_err {err:.3e}, {row['copies']} rotated copies")
         rows.append(row)
     first = rows[0]
     return {**{k: first[k] for k in ("ms", "graph_ms", "plain_ms",
@@ -725,11 +833,10 @@ def check_paged_mla(dev) -> float:
     lengths with a length-0 row and at one 2048-token row: within 2e-2,
     separate == combined operands and two calls bitwise equal, the
     length-0 row exact zeros, and one replay of the call captured in a
-    CUDA graph bitwise equal to the eager call.  Returns the max
-    error."""
+    CUDA graph bitwise equal to the eager call (:func:`k1_four_ways`).
+    Returns the max error."""
     import torch
     from repro_torch.kernels.paged_attention import (decode_prefetch,
-                                                     paged_attention_cuda,
                                                      paged_attention_plain)
     gen = torch.Generator().manual_seed(SEED + 40)
     worst = 0.0
@@ -738,36 +845,18 @@ def check_paged_mla(dev) -> float:
         inp = mla_paged_inputs(gen, dev, lengths)
         check(inp["v"] is inp["k"], "K1 MLA: V is not the K slab")
         args, kw = paged_call(inp, vd)
-        sep = paged_attention_cuda(*args, **kw)
-        again = paged_attention_cuda(*args, **kw)
-        pf = decode_prefetch(inp["bt"], inp["lengths"])
-        comb = paged_attention_cuda(*args, prefetch=pf, **kw)
-        graph = torch.cuda.CUDAGraph()
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            paged_attention_cuda(*args, prefetch=pf, **kw)
-        torch.cuda.current_stream().wait_stream(side)
-        with torch.cuda.graph(graph):
-            captured = paged_attention_cuda(*args, prefetch=pf, **kw)
-        graph.replay()
-        torch.cuda.synchronize()
+        sep, same = k1_four_ways(args, kw, decode_prefetch(inp["bt"],
+                                                           inp["lengths"]))
         plain = paged_attention_plain(*args, **kw)
         err = (sep.float() - plain.float()).abs().max().item()
-        same = torch.equal(sep, comb)
-        repeat = torch.equal(sep, again)
-        graphed = torch.equal(sep, captured)
         zero = bool((sep[lengths.index(0)] == 0).all()) if 0 in lengths \
             else True
         log(f"K1 MLA {name:26s} splits {paged_plan_of(inp, 256):22s} "
-            f"max_err={err:.3e} tol={BF16_TOL:g} combined==separate={same} "
-            f"repeat={repeat} graph==eager={graphed} len0_zero={zero}")
+            f"max_err={err:.3e} tol={BF16_TOL:g} "
+            + " ".join(f"{k}={v}" for k, v in same.items())
+            + f" len0_zero={zero}")
         check(err <= BF16_TOL, f"K1 MLA {name}: max_err {err:.3e}")
-        check(same, f"K1 MLA {name}: the combined operand gives another "
-              f"result than separate ones")
-        check(repeat, f"K1 MLA {name}: two calls differ")
-        check(graphed, f"K1 MLA {name}: the graph's replay differs from the "
-              f"eager call")
+        check(all(same.values()), f"K1 MLA {name}: {same}")
         check(zero, f"K1 MLA {name}: a length-0 row is not exact zeros")
         worst = max(worst, err)
     return worst
@@ -779,53 +868,148 @@ def time_paged_mla(dev) -> list:
     eager (``time_cuda``), as a CUDA graph, the plain version, the
     wrapper's host microseconds a call, and the bound from bytes (3.35
     TB/s) and from FLOPs (989 TFLOP/s bf16; the fp32 CUDA-core time at
-    67 TFLOP/s beside it, which a SIMT kernel meets first).  Input copies
-    rotate past the 50 MB L2.  Returns a row per shape."""
+    67 TFLOP/s beside it, which a SIMT kernel meets first), through
+    :func:`k1_timed`.  Input copies rotate past the 50 MB L2.  Returns a
+    row per shape."""
     import torch
     from repro_torch.kernels.paged_attention import (decode_prefetch,
                                                      paged_attention_cuda,
                                                      paged_attention_plain)
     gen = torch.Generator().manual_seed(SEED + 41)
-    vd = MLA_K1["vd"]
+    vd = {"v_dim": MLA_K1["vd"]}
     rows = []
     for name, lengths in MLA_K1_TIMED:
         one = mla_paged_inputs(gen, dev, lengths)
         pool_bytes = one["k"].numel() * one["k"].element_size()
         copies = [one] + [mla_paged_inputs(gen, dev, lengths) for _ in range(
             max(1, -(-160_000_000 // pool_bytes) - 1))]
-        pfs = [decode_prefetch(c["bt"], c["lengths"]) for c in copies]
-        n = len(copies)
-
-        def kernel(i):
-            c = copies[i % n]
-            return paged_attention_cuda(c["q"], c["k"], c["k"], c["bt"],
-                                        c["lengths"], v_dim=vd,
-                                        prefetch=pfs[i % n])
-        out = kernel(0)
-        err = (out.float() - paged_attention_plain(
-            *paged_call(one, {})[0], v_dim=vd).float()).abs().max().item()
+        args, kw = paged_call(one, vd)
+        out = paged_attention_cuda(*args, prefetch=decode_prefetch(
+            one["bt"], one["lengths"]), **kw)
+        err = (out.float() - paged_attention_plain(*args, **kw).float()
+               ).abs().max().item()
         check(err <= BF16_TOL, f"K1 MLA at {name}: max_err {err:.3e}")
-        t_bytes, t_ops = paged_bound_parts(one, vd)
-        row = {"shape": name, "copies": n, "max_abs_err": err,
-               "plan": paged_plan_of(one, vd),
-               "ms": time_cuda(kernel, iters=100),
-               "graph_ms": time_cuda_graph(kernel, iters=50),
-               "plain_ms": time_cuda(lambda i: paged_attention_plain(
-                   *paged_call(copies[i % n], {})[0], v_dim=vd), iters=10),
-               "host_us": host_us(kernel), "bytes_ms": t_bytes,
-               "ops_ms": t_ops,
-               "fp32_simt_ops_ms": t_ops * BF16_FLOPS / FP32_FLOPS}
-        row["bound_ms"] = max(t_bytes, t_ops)
-        row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        row = {"shape": name, "max_abs_err": err,
+               "plan": paged_plan_of(one, vd["v_dim"]),
+               **k1_timed(copies, vd, iters=100, plain_iters=10)}
+        row["fp32_simt_ops_ms"] = row["ops_ms"] * BF16_FLOPS / FP32_FLOPS
         log(f"K1 MLA time at {name} page=64 bf16: kernel {row['ms']:.4f} ms, "
             f"as a CUDA graph {row['graph_ms']:.4f} ms, bound "
             f"{row['bound_ms']:.4f} ms ({row['bound_by']}: bytes "
-            f"{t_bytes:.4f} ms, bf16 FLOPs {t_ops:.4f} ms; fp32 CUDA-core "
-            f"FLOPs {row['fp32_simt_ops_ms']:.4f} ms), plain "
+            f"{row['bytes_ms']:.4f} ms, bf16 FLOPs {row['ops_ms']:.4f} ms; "
+            f"fp32 CUDA-core FLOPs {row['fp32_simt_ops_ms']:.4f} ms), plain "
             f"{row['plain_ms']:.4f} ms, host {row['host_us']:.1f} us a call, "
-            f"plan {row['plan']}, max_err {err:.3e}, {n} rotated copies")
+            f"plan {row['plan']}, max_err {err:.3e}, {row['copies']} "
+            f"rotated copies")
         rows.append(row)
     return rows
+
+
+# K1 at gemma2-27b's decode shape: 32 query heads over 16 KV heads of 128
+# (g = 2), bf16 pages of 64, max_len 8192 (128 pages a row), its swa
+# layers' window of 4096 and logit cap 50 at query scale 144^-1/2; rows
+# 17-5100 long, three past the window
+G2_K1 = dict(h=32, kk=16, hd=128, ps=64, m=128)
+G2_K1_LENGTHS = [5100, 4608, 4097, 3000, 2048, 1024, 333, 17]
+G2_ATTN = dict(window=4096, logit_cap=50.0, scale=144 ** -0.5)
+# the cap-binding inputs: q times 16 (exact in bf16) spreads the logits to
+# a std of about 15 (16 sqrt(128) / 12), the largest of a 4096-key row
+# near 60, which the cap of 50 pulls to about 42; at the plain inputs'
+# |s| <= 4 the cap moves a logit by 1e-3 and no check could see it
+G2_CAP_Q_GAIN = 16.0
+
+
+def g2_paged_inputs(gen, dev):
+    import torch
+    c = G2_K1
+    return paged_inputs(gen, dev, lengths=G2_K1_LENGTHS, h=c["h"],
+                        kk=c["kk"], hd=c["hd"], ps=c["ps"], m=c["m"],
+                        page_dtype=torch.bfloat16, q_dtype=torch.bfloat16)
+
+
+def gemma2_paged(dev) -> dict:
+    """K1 at gemma2-27b's decode shape with its swa layers' window and
+    logit cap (``G2_K1``): against its plain version (2e-2, per element
+    ``BF16_FLASH_REL`` and per output vector ``BF16_ROW_REL_L2``), the
+    bitwise checks of :func:`k1_four_ways`, and a row past the window
+    differing from the same call without it by 10x its error (the
+    window masks).  On the same pages with q scaled by
+    ``G2_CAP_Q_GAIN``, so that the cap binds: against the plain version
+    on q in fp32 per output vector, and differing from the call without
+    the cap (the worst output vector's relative L2) by 10x that error
+    (the cap is applied).  Then timed (:func:`k1_timed`:
+    eager, as a CUDA graph, the plain version and the wrapper's host
+    microseconds a call, input copies rotated past the 50 MB L2) beside
+    its bound (the visible tokens: the last 4096 of a longer row).
+    Returns the row."""
+    import torch
+    from repro_torch.kernels.paged_attention import (decode_prefetch,
+                                                     paged_attention_cuda,
+                                                     paged_attention_plain)
+    gen = torch.Generator().manual_seed(SEED + 27)
+    one = g2_paged_inputs(gen, dev)
+    args, kw = paged_call(one, G2_ATTN)
+    pf = decode_prefetch(one["bt"], one["lengths"])
+    out, same = k1_four_ways(args, kw, pf)
+    plain = paged_attention_plain(*args, **kw)
+    errs = bf16_errors(out, plain)
+    unmasked = paged_attention_cuda(*args, prefetch=pf, **{
+        k: v for k, v in kw.items() if k != "window"})
+    masks = (out[0].float() - unmasked[0].float()).abs().max().item()
+    row0_err = (out[0].float() - plain[0].float()).abs().max().item()
+    hot = (args[0] * G2_CAP_Q_GAIN,) + args[1:]
+    capped = paged_attention_cuda(*hot, prefetch=pf, **kw)
+    uncapped = paged_attention_cuda(*hot, prefetch=pf, **{
+        k: v for k, v in kw.items() if k != "logit_cap"})
+    # the plain version scales q in its own dtype (as the reference
+    # does): at these logits bf16's rounding of q * scale moves a logit
+    # by ~0.03 and the output by ~2%, so it gets q in fp32, which the
+    # kernel scales in fp32
+    cap_errs = bf16_errors(capped, paged_attention_plain(
+        hot[0].float(), *hot[1:], **kw))
+    cap_errs["row_rel_l2_bf16_q_plain"] = bf16_errors(
+        capped, paged_attention_plain(*hot, **kw))["row_rel_l2"]
+    caps = bf16_errors(uncapped, capped)["row_rel_l2"]
+    log(f"K1 gemma2 B=8 H=32 K=16 window 4096 cap 50 splits "
+        f"{paged_plan_of(one):18s} max_err={errs['max_abs_err']:.3e} "
+        f"tol={BF16_TOL:g} rel_ratio={errs['rel_ratio']:.3f} row_rel_l2="
+        f"{errs['row_rel_l2']:.3e} tol={BF16_ROW_REL_L2:g} "
+        + " ".join(f"{k}={v}" for k, v in same.items())
+        + f" row 0 (5100) with vs without the window {masks:.3e}; q x "
+        f"{G2_CAP_Q_GAIN:g}: max_err={cap_errs['max_abs_err']:.3e} "
+        f"rel_ratio={cap_errs['rel_ratio']:.3f} row_rel_l2="
+        f"{cap_errs['row_rel_l2']:.3e} (against the plain version on bf16 q "
+        f"{cap_errs['row_rel_l2_bf16_q_plain']:.3e}), with vs without the "
+        f"cap (row_rel_l2) {caps:.3e}")
+    check(errs["max_abs_err"] <= BF16_TOL and errs["rel_ratio"] <= 1.0
+          and errs["row_rel_l2"] <= BF16_ROW_REL_L2,
+          f"K1 gemma2: {errs}")
+    check(all(same.values()), f"K1 gemma2: {same}")
+    check(masks > 10 * row0_err, f"K1 gemma2: the 5100-token row's "
+          f"output with and without the window differs by {masks:.3e}, "
+          f"not 10x its error {row0_err:.3e}: the window does not mask")
+    check(cap_errs["row_rel_l2"] <= BF16_ROW_REL_L2,
+          f"K1 gemma2, q x {G2_CAP_Q_GAIN:g}: {cap_errs}")
+    check(caps > 10 * cap_errs["row_rel_l2"], f"K1 gemma2, q x "
+          f"{G2_CAP_Q_GAIN:g}: the output with and without the cap differs "
+          f"by {caps:.3e} of its norm, not 10x its error "
+          f"{cap_errs['row_rel_l2']:.3e}: the cap is not applied")
+    pool_bytes = 2 * one["k"].numel() * one["k"].element_size()
+    copies = [one] + [g2_paged_inputs(gen, dev) for _ in range(
+        max(1, -(-160_000_000 // pool_bytes) - 1))]
+    row = {"shape": "B=8 H=32 K=16 hd=128 page=64 window=4096 cap=50 "
+                    "len=17..5100", **errs, "plan": paged_plan_of(one),
+           "cap_bound": {"q_gain": G2_CAP_Q_GAIN, **cap_errs,
+                         "capped_vs_uncapped": caps},
+           **k1_timed(copies, G2_ATTN, iters=100, plain_iters=5),
+           "library_ms": None,
+           "library_none": "no library call pages K/V through block tables "
+                           "with a window and a logit cap"}
+    log(f"K1 time at gemma2's decode shape: kernel {row['ms']:.4f} ms, as a "
+        f"CUDA graph {row['graph_ms']:.4f} ms, bound {row['bound_ms']:.4f} "
+        f"ms ({row['bound_by']}), plain {row['plain_ms']:.4f} ms, host "
+        f"{row['host_us']:.1f} us a call, {row['copies']} rotated copies")
+    return row
 
 
 # K2's head form: (B, S, d, M, N, normalize); the first is the served probe
@@ -1308,6 +1492,24 @@ def flash_bound_ms(s, t, h, kk, hd, vd, elem) -> tuple:
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def k3_timed(copies, kw, *, iters: int, plain_iters: int,
+             reps: int = 5) -> dict:
+    """K3 with ``kw`` over the rotated input ``copies``: eager
+    (``time_cuda``, ``iters`` calls), the same calls captured in one
+    CUDA graph replayed ``reps`` times (an extra column), and the plain
+    version."""
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_attention_plain)
+    n = len(copies)
+
+    def kernel(i):
+        return flash_attention_cuda(*copies[i % n], **kw)
+    return {"ms": time_cuda(kernel, iters=iters),
+            "graph_ms": time_cuda_graph(kernel, iters=iters, reps=reps),
+            "plain_ms": time_cuda(lambda i: flash_attention_plain(
+                *copies[i % n], **kw), iters=plain_iters, warmup=1)}
+
+
 def time_flash_attention(dev) -> dict:
     """K3 at every served prefill shape (``FLASH_SERVED``: B=1, S=T in
     {128, 448, 1024}, H=K in {16, 32}, hd 128, bf16, causal: the
@@ -1326,12 +1528,12 @@ def time_flash_attention(dev) -> dict:
     (what the whole-prompt prefill ran before K3; not a plain version
     of the kernel, which scales q in fp32) and the SIMT variant on fp32
     copies of the same inputs; at the smallest, the wrapper's host
-    microseconds per call for each variant.  Returns the largest MHA
-    shape's numbers, a row per MHA shape and a row per MLA shape."""
+    microseconds per call for each variant.  The kernel's and the plain
+    version's times come from :func:`k3_timed`.  Returns the largest
+    MHA shape's numbers, a row per MHA shape and a row per MLA shape."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
-                                                     flash_attention_plain)
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.models.attention import blocked_attention
     gen = torch.Generator().manual_seed(SEED + 7)
     rows = []
@@ -1350,13 +1552,9 @@ def time_flash_attention(dev) -> dict:
                                                   is_causal=True)
         iters = max(50, 2 * n)
         row = {"S": s, "H": h, "hd": hd, "vd": vd, "copies": n,
-               "ms": time_cuda(kernel, iters=iters),
+               **k3_timed(copies, {}, iters=iters, plain_iters=10),
                "library_ms": time_cuda(sdpa, iters=iters),
-               "graph_ms": time_cuda_graph(kernel, iters=iters),
-               "library_graph_ms": time_cuda_graph(sdpa, iters=iters),
-               "plain_ms": time_cuda(
-                   lambda i: flash_attention_plain(*copies[i % n]),
-                   iters=10)}
+               "library_graph_ms": time_cuda_graph(sdpa, iters=iters)}
         row["bound_ms"], row["bound_by"] = flash_bound_ms(s, t, h, kk, hd,
                                                           vd, 2)
         row["sdpa_vs_kernel_max_abs"] = (
@@ -1397,6 +1595,172 @@ def time_flash_attention(dev) -> dict:
             "shapes": rows, "mla_shapes": mla_rows}
 
 
+# K3 at gemma2-27b's whole-prompt prefill: a 5100-token prompt padded to
+# page 64, 32 query heads over 16 KV heads of 128, logit cap 50 at query
+# scale 144^-1/2, with the swa layers' window of 4096 and without (the
+# full layers)
+G2_K3 = (1, 5120, 5120, 32, 16, 128, 128)
+COMPILE_CACHE = Path(__file__).resolve().parent / "build" / "torch_compile"
+
+
+def visible_pairs(s: int, window=None) -> int:
+    """(query, key) pairs a causal S == T prefill attends, under a
+    sliding window of ``window`` keys where given."""
+    if window is None or window >= s:
+        return s * (s + 1) // 2
+    return window * (window + 1) // 2 + (s - window) * window
+
+
+def flex_softcap(copies, *, window, logit_cap, scale):
+    """The library call beside K3 at gemma2's prefill: torch's
+    ``flex_attention`` compiled once for this mask (timed here only,
+    never on the port's path) with a tanh softcap ``score_mod``, a
+    causal block mask (with the sliding window where given) and grouped
+    query heads, on heads-first copies of ``copies``.  Its compile
+    caches go under ``build/`` and compile in this process.  Returns
+    ``fn(i)``, copy ``i``'s output as (B, H, S, vd)."""
+    import os
+    import torch
+    import torch._inductor.config as inductor_config
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+    for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"),
+                     ("TRITON_CACHE_DIR", "triton")):
+        os.environ.setdefault(var, str(COMPILE_CACHE / sub))
+    inductor_config.compile_threads = 1
+    q0, k0, _ = copies[0]
+
+    def visible(b, h, q, kv):
+        causal = q >= kv
+        return causal & (q - kv < window) if window else causal
+
+    def softcap(score, b, h, q, kv):
+        return torch.tanh(score / logit_cap) * logit_cap
+    mask = create_block_mask(visible, None, None, q0.shape[1], k0.shape[1],
+                             device=q0.device)
+    flex = torch.compile(flex_attention, dynamic=False)
+    heads_first = [[x.transpose(1, 2).contiguous() for x in c]
+                   for c in copies]
+    n = len(copies)
+
+    def library(i):
+        return flex(*heads_first[i % n], score_mod=softcap, block_mask=mask,
+                    scale=scale, enable_gqa=True)
+    return library
+
+
+def gemma2_flash(dev) -> list:
+    """K3 at gemma2-27b's prefill shape (``G2_K3``), with the window and
+    without: against its plain version (2e-2, per element
+    ``BF16_FLASH_REL`` and per output vector ``BF16_ROW_REL_L2``), one
+    launch of the tensor-core variant each, the windowed output
+    differing from the full one on the rows past the window; then timed
+    (:func:`k3_timed`: eager, as a CUDA graph and the plain version)
+    beside the bound (2*(hd+vd) FLOPs per (query head, visible pair)
+    over the bf16 rate, or q, k, v and out once over HBM) and the
+    library call :func:`flex_softcap` (its output held to the plain
+    version within 2e-2 first).  With the window, on q scaled by
+    ``G2_CAP_Q_GAIN`` so that the cap binds: against the plain version
+    per output vector, and differing from the call without the cap (the
+    worst output vector's relative L2) by 10x that error (the cap is
+    applied).  Returns a row per mask."""
+    import torch
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_attention_plain)
+    gen = torch.Generator().manual_seed(SEED + 28)
+    b, s, t, h, kk, hd, vd = G2_K3
+    copy_bytes = 2 * (s * h * hd + t * kk * (hd + vd) + s * h * vd)
+    n = max(3, -(-150_000_000 // copy_bytes))
+    copies = [flash_inputs(gen, dev, b, s, t, h, kk, hd, vd, torch.bfloat16)
+              for _ in range(n)]
+    rows, outs = [], {}
+    for window in (4096, None):
+        kw = dict(window=window, logit_cap=G2_ATTN["logit_cap"],
+                  scale=G2_ATTN["scale"])
+        counts = {"flash_attention": 0, "flash_attention_wgmma": 0,
+                  "flash_attention_simt": 0}
+        got = flash_attention_cuda(*copies[0], counts=counts, **kw)
+        torch.cuda.synchronize()
+        want = flash_attention_plain(*copies[0], **kw)
+        errs = bf16_errors(got, want)
+        late_err = (got[:, 4096:].float() - want[:, 4096:].float()
+                    ).abs().max().item()     # the rows past the window
+        library = flex_softcap(copies, **kw)
+        lib_errs = bf16_errors(library(0).transpose(1, 2), want)
+        del want
+        outs[window] = got
+        tag = f"window={window}" if window else "full"
+        check(counts == {"flash_attention": 1, "flash_attention_wgmma": 1,
+                         "flash_attention_simt": 0},
+              f"K3 gemma2 {tag}: the wrapper counted {counts}")
+        check(errs["max_abs_err"] <= BF16_TOL and errs["rel_ratio"] <= 1.0
+              and errs["row_rel_l2"] <= BF16_ROW_REL_L2,
+              f"K3 gemma2 {tag}: {errs}")
+        check(lib_errs["max_abs_err"] <= BF16_TOL,
+              f"K3 gemma2 {tag}: flex_attention is "
+              f"{lib_errs['max_abs_err']:.3e} off the plain version: not "
+              f"the kernel's function")
+        pairs = visible_pairs(s, window)
+        t_ops = 2 * (hd + vd) * h * pairs / BF16_FLOPS * 1e3
+        t_bytes = copy_bytes / HBM_BYTES_PER_S * 1e3
+        row = {"S": s, "H": h, "K": kk, "hd": hd, "window": window,
+               "logit_cap": kw["logit_cap"], "copies": n, **errs,
+               "max_abs_err_past_4096": late_err,
+               "visible_pairs": pairs,
+               **k3_timed(copies, kw, iters=30, plain_iters=2, reps=3),
+               "bytes_ms": t_bytes, "ops_ms": t_ops,
+               "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "library_ms": time_cuda(library, iters=30),
+               "library": "flex_attention (compiled; softcap score_mod, "
+                          "causal" + (" + window" if window else "")
+                          + " block mask, enable_gqa)",
+               "library_errs": lib_errs}
+        del library
+        log(f"K3 gemma2 B=1 S=T={s} H={h} K={kk} hd={hd} cap 50 {tag}: "
+            f"max_err={errs['max_abs_err']:.3e} rel_ratio="
+            f"{errs['rel_ratio']:.3f} row_rel_l2={errs['row_rel_l2']:.3e}; "
+            f"kernel {row['ms']:.4f} ms, as a CUDA graph "
+            f"{row['graph_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']}, {pairs / 1e6:.2f} M pairs), plain "
+            f"{row['plain_ms']:.4f} ms, flex_attention "
+            f"{row['library_ms']:.4f} ms ({row['ms'] / row['library_ms']:.2f}"
+            f"x; max_err {lib_errs['max_abs_err']:.3e}, row_rel_l2 "
+            f"{lib_errs['row_rel_l2']:.3e})")
+        rows.append(row)
+    masked = (outs[4096][:, 4096:].float() - outs[None][:, 4096:].float()
+              ).abs().max().item()
+    early = (outs[4096][:, :4096].float() - outs[None][:, :4096].float()
+             ).abs().max().item()
+    log(f"K3 gemma2: rows past 4096 with vs without the window differ by "
+        f"{masked:.3e}, rows below it by {early:.3e}")
+    check(masked > 10 * rows[0]["max_abs_err_past_4096"]
+          and early <= BF16_TOL,
+          f"K3 gemma2: the window does not mask the rows past it "
+          f"({masked:.3e}) or changes rows below it ({early:.3e})")
+    del outs
+    kw = dict(window=4096, logit_cap=G2_ATTN["logit_cap"],
+              scale=G2_ATTN["scale"])
+    hot = [copies[0][0] * G2_CAP_Q_GAIN, *copies[0][1:]]
+    capped = flash_attention_cuda(*hot, **kw)
+    uncapped = flash_attention_cuda(*hot, **{**kw, "logit_cap": None})
+    cap_errs = bf16_errors(capped, flash_attention_plain(*hot, **kw))
+    caps = bf16_errors(uncapped, capped)["row_rel_l2"]
+    log(f"K3 gemma2 window=4096, q x {G2_CAP_Q_GAIN:g}: max_err="
+        f"{cap_errs['max_abs_err']:.3e} rel_ratio={cap_errs['rel_ratio']:.3f}"
+        f" row_rel_l2={cap_errs['row_rel_l2']:.3e} tol={BF16_ROW_REL_L2:g}; "
+        f"with vs without the cap (row_rel_l2) {caps:.3e}")
+    check(cap_errs["row_rel_l2"] <= BF16_ROW_REL_L2,
+          f"K3 gemma2, q x {G2_CAP_Q_GAIN:g}: {cap_errs}")
+    check(caps > 10 * cap_errs["row_rel_l2"], f"K3 gemma2, q x "
+          f"{G2_CAP_Q_GAIN:g}: the output with and without the cap differs "
+          f"by {caps:.3e} of its norm, not 10x its error "
+          f"{cap_errs['row_rel_l2']:.3e}: the cap is not applied")
+    rows[0]["cap_bound"] = {"q_gain": G2_CAP_Q_GAIN, **cap_errs,
+                            "capped_vs_uncapped": caps}
+    return rows
+
+
 def tiny_mla_config():
     """minicpm3-4b's MLA widths (40 heads, kv_lora 256 + d_rope 32, value
     heads of 64) in a 2-layer fp32 model of d_model 128: K1's latent
@@ -1410,13 +1774,36 @@ def tiny_mla_config():
         kv_cache_dtype="float32")
 
 
+def tiny_moe_config():
+    """olmoe-1b-7b's blocks (qk-norm, an MoE MLP under softmax-then-top-k
+    routing) in a 2-layer fp32 model of d_model 64 with 4 experts, top-2:
+    an 8-token prefill routes 16 assignments into buckets of
+    C = int(1.25 * 8 * 2 / 4) = 5, so capacity drops there, and decode
+    is dropless."""
+    from repro_torch.configs import get_config
+    return get_config("olmoe-1b-7b").with_(
+        name="tiny-moe-check", num_layers=2, d_model=64, d_ff=64,
+        vocab_size=128, num_heads=4, num_kv_heads=4, head_dim=16,
+        num_experts=4, num_experts_per_tok=2, moe_d_ff=64,
+        compute_dtype="float32", param_dtype="float32",
+        kv_cache_dtype="float32")
+
+
+def window_layers(cfg) -> int:
+    """Layers that attend through a sliding window (K1 / K3 count their
+    launches under ``*_window``)."""
+    return cfg.num_groups * sum(
+        spec.mixer == "attn" and spec.attn_kind == "swa"
+        and cfg.window is not None for spec in cfg.pattern)
+
+
 def check_model_against_cpu(dev, cfg=None) -> float:
-    """A tiny fp32 model (GQA with a window layer, or ``cfg``: the MLA
-    one of :func:`tiny_mla_config`): prefill (through K3's SIMT variant
-    on the card) + teacher-forced paged decode (through K1; an MLA
-    layer's through its latent form) on the card, against the same
-    weights on the CPU (plain path).  Returns the max logit
-    difference."""
+    """A tiny fp32 model (GQA g = 2 with a window layer, or ``cfg``: the
+    MLA one of :func:`tiny_mla_config`, the MoE one of
+    :func:`tiny_moe_config`): prefill (through K3's SIMT variant on the
+    card) + teacher-forced paged decode (through K1; an MLA layer's
+    through its latent form) on the card, against the same weights on
+    the CPU (plain path).  Returns the max logit difference."""
     import torch
     from repro_torch.configs.base import LayerSpec, ModelConfig
     from repro_torch.kernels import ops
@@ -1463,6 +1850,12 @@ def check_model_against_cpu(dev, cfg=None) -> float:
     check(ops.launches["paged_attention"] == cfg.num_layers * 12,
           f"tiny model: paged_attention launched "
           f"{ops.launches['paged_attention']} times for 12 decode steps")
+    swa = window_layers(cfg)
+    check(ops.launches["paged_attention_window"] == swa * 12
+          and ops.launches["flash_attention_window"] == swa,
+          f"{cfg.name}: {ops.launches['flash_attention_window']} windowed "
+          f"K3 and {ops.launches['paged_attention_window']} windowed K1 "
+          f"launches for one prefill and 12 steps of {swa} swa layers")
     return worst
 
 
@@ -1849,16 +2242,19 @@ class ShadowStep:
 
 
 K1_FORMS = ("paged_attention", "paged_attention_int8",
-            "paged_attention_latent")
+            "paged_attention_latent", "paged_attention_window")
+K3_COUNTS = ("flash_attention", "flash_attention_wgmma",
+             "flash_attention_window")
 
 
 def k1_step_tally(eng) -> dict:
     """The K1 launches one paged decode step of ``eng`` makes, by form
     (``ops.launches``' keys): one a layer, each also under
-    ``paged_attention_int8`` where the layer's pool is int8 and under
+    ``paged_attention_int8`` where the layer's pool is int8, under
     ``paged_attention_latent`` where the layer is MLA (the absorbed
-    latent form).  Forms with no launch are left out, as a capture's
-    tally leaves them."""
+    latent form) and under ``paged_attention_window`` where it is a swa
+    layer.  Forms with no launch are left out, as a capture's tally
+    leaves them."""
     import torch
     cfg, g = eng.cfg, eng.cfg.num_groups
     want = {"paged_attention": cfg.num_layers,
@@ -1866,7 +2262,8 @@ def k1_step_tally(eng) -> dict:
                 g for i in range(len(cfg.pattern))
                 if eng._paged_caches[f"p{i}"]["k"].dtype == torch.int8),
             "paged_attention_latent": sum(
-                g for spec in cfg.pattern if spec.mixer == "mla")}
+                g for spec in cfg.pattern if spec.mixer == "mla"),
+            "paged_attention_window": window_layers(cfg)}
     return {k: n for k, n in want.items() if n}
 
 
@@ -2348,7 +2745,8 @@ def serve_ring(dev, arch, *, prompt_len, new_tokens, batch=2, step_times=0,
                 key = "step_idle_share" if name == "graph" else \
                     "eager_step_idle_share"
                 prof[key] = 1.0 - busy_s[name] / steps[name]["median_ms"]
-    out = {"model": arch, "layers": eng.cfg.num_layers, "params": n_params,
+    out = {"model": arch, "layers": eng.cfg.num_layers,
+           "window_layers": window_layers(eng.cfg), "params": n_params,
            "batch": batch, "prompt_len": prompt_len, "new_tokens": new_tokens,
            "tokens_shapes": [tuple(r["tokens"].shape) for r in runs],
            "prompts_kept": all(torch.equal(r["tokens"][:, :prompt_len].cpu(),
@@ -2436,8 +2834,10 @@ def check_ring(run, *, scan: bool) -> None:
     k3 = 0 if scan else layers * run["prefills"]
     want = {"selective_scan": layers * run["prefills"] if scan else 0,
             "flash_attention": k3, "flash_attention_wgmma": k3,
-            "flash_attention_simt": 0, "paged_attention": 0,
-            "paged_attention_int8": 0, "paged_attention_latent": 0,
+            "flash_attention_simt": 0,
+            "flash_attention_window": run["window_layers"] * run["prefills"],
+            "paged_attention": 0, "paged_attention_int8": 0,
+            "paged_attention_latent": 0, "paged_attention_window": 0,
             "mux_score": 0}
     check(run["prefills"] > 0 and got == want,
           f"{name}: launches {got} for {run['prefills']} prefills of "
@@ -2495,7 +2895,7 @@ def check_wgmma_prefills(tag, launches) -> None:
 
 def check_served(stats, cfgs) -> None:
     by_model = {e["model"]: e for e in stats["engines"]}
-    k3_want = 0
+    k3_want = k3_window = 0
     for cfg in cfgs:
         e = by_model[cfg.name]
         check(e["requests"] > 0, f"{cfg.name} received no request")
@@ -2511,10 +2911,14 @@ def check_served(stats, cfgs) -> None:
               f"{cfg.name}: K1 launched {e['k1_by_form']} by form, expected "
               f"{forms} ({e['decode_steps']} steps)")
         k3_want += cfg.num_layers * e["whole_prompt_prefills"]
-    check(stats["launches"]["flash_attention"] == k3_want > 0,
+        k3_window += window_layers(cfg) * e["whole_prompt_prefills"]
+    check(stats["launches"]["flash_attention"] == k3_want > 0
+          and stats["launches"]["flash_attention_window"] == k3_window,
           f"direct path: flash_attention launched "
-          f"{stats['launches']['flash_attention']} times, expected "
-          f"layers x whole-prompt prefills = {k3_want}")
+          f"{stats['launches']['flash_attention']} times "
+          f"({stats['launches']['flash_attention_window']} windowed), "
+          f"expected layers x whole-prompt prefills = {k3_want} "
+          f"({k3_window} in swa layers)")
     check_wgmma_prefills("direct path", stats["launches"])
     check(stats["launches"]["mux_score"] == len(stats["prefill_ms"]),
           f"direct path: mux_score launched {stats['launches']['mux_score']} "
@@ -2541,7 +2945,7 @@ def check_scheduler(run, prompts, cfgs, new_tokens) -> None:
               f"prompt ({len(prompt)}) + {new_tokens} tokens")
     by_model = {e["model"]: e for e in run["engines"]}
     k1_want = dict.fromkeys(K1_FORMS, 0)
-    k3_want = 0
+    k3_want = k3_window = 0
     for cfg in cfgs:
         e = by_model[cfg.name]
         check(e["pages_in_use_after"] == 0,
@@ -2559,10 +2963,14 @@ def check_scheduler(run, prompts, cfgs, new_tokens) -> None:
         for k, n in e["step_tally"].items():
             k1_want[k] += n * e["decode_steps"]
         k3_want += cfg.num_layers * e["whole_prompt_prefills"]
+        k3_window += window_layers(cfg) * e["whole_prompt_prefills"]
     got = run["launches"]
-    check(got["flash_attention"] == k3_want > 0,
+    check(got["flash_attention"] == k3_want > 0
+          and got["flash_attention_window"] == k3_window,
           f"{tag}: flash_attention launched {got['flash_attention']} "
-          f"times, expected layers x whole-prompt prefills = {k3_want}")
+          f"times ({got['flash_attention_window']} windowed), expected "
+          f"layers x whole-prompt prefills = {k3_want} ({k3_window} in "
+          f"swa layers)")
     check_wgmma_prefills(tag, got)
     check({k: got[k] for k in K1_FORMS} == k1_want
           and k1_want["paged_attention"] > 0,
@@ -2685,7 +3093,10 @@ def check_chunked_prefill(dev, zoo, n_tokens: int = 1024, chunk: int = 256,
     tokens each.  The first-token logits must agree within
     ``CHUNK_TOL`` and the tokens be the same, or the reason is logged;
     a chunked path that computed something else (logits off by more than
-    a tenth of their norm) fails."""
+    a tenth of their norm) fails.  An MoE model routes each chunk on its
+    own (its capacity follows the chunk's length, as in the JAX
+    package), so there the difference is logged and not held; its
+    logits must still be finite and its pool drain."""
     import torch
     rng = np.random.default_rng(SEED + 93)
     prompt = rng.integers(0, PROMPT_VOCAB, n_tokens).astype(np.int32)
@@ -2727,9 +3138,19 @@ def check_chunked_prefill(dev, zoo, n_tokens: int = 1024, chunk: int = 256,
         err = (w["row"] - c["row"]).abs().max().item()
         rel = ((w["row"] - c["row"]).norm() / w["row"].norm()).item()
         same = w["tokens"] == c["tokens"]
-        check(rel <= 0.1, f"{name}: chunked prefill's first-token logits are "
-              f"{rel:.3f} of their norm off the whole prompt's")
-        if err > CHUNK_TOL or not same:
+        moe = any(spec.mlp == "moe" for spec in eng.cfg.pattern)
+        check(moe or rel <= 0.1, f"{name}: chunked prefill's first-token "
+              f"logits are {rel:.3f} of their norm off the whole prompt's")
+        if moe:
+            log(f"  {name}: chunked prefill max logit diff {err:.3e}, "
+                f"{rel:.3f} of the norm, tokens "
+                f"{'equal' if same else 'differ'}: by design, each chunk "
+                f"of {chunk} routes on its own with capacity "
+                f"int({eng.cfg.capacity_factor} * {chunk} * "
+                f"{eng.cfg.num_experts_per_tok} / {eng.cfg.num_experts}), "
+                f"the whole prompt with its {n_tokens} tokens' (the JAX "
+                f"package's dispatch)")
+        elif err > CHUNK_TOL or not same:
             reason = (f"{name}: chunked prefill max logit diff {err:.3e} "
                       f"(tol {CHUNK_TOL:g}), tokens "
                       f"{'equal' if same else 'differ'} ({w['tokens']} whole, "
@@ -2747,8 +3168,9 @@ def check_chunked_prefill(dev, zoo, n_tokens: int = 1024, chunk: int = 256,
         out[name] = {"max_logit_diff": err, "rel_l2": rel,
                      "tokens_equal": same, "chunks": c["calls"],
                      "whole_ms": w["ms"], "chunked_ms": c["ms"],
-                     "first_token": [w["tokens"][0], c["tokens"][0]]}
-        log(f"phase 9 chunked prefill, {name}: {json.dumps(out[name])}")
+                     "first_token": [w["tokens"][0], c["tokens"][0]],
+                     "routed_by_chunk": moe}
+        log(f"chunked prefill, {name}: {json.dumps(out[name])}")
     return out
 
 
@@ -2783,34 +3205,20 @@ def replay_direct(dev, zoo, prompts, *, new_tokens: int = 32) -> list:
     return [list(s.tokens) for _, s in seqs]
 
 
-def mla_phase(dev, on_logits, finite, profile: bool) -> dict:
-    """Phase 9: minicpm3-4b (MLA, K1's latent form, bf16 latent pool)
-    and olmo-1b (int8 pool, K1's int8 form) at full width behind the
-    token-probe mux: the decode graphs' checks, the direct path graphed
-    and eager, the scheduler path, the same prompts again on the direct
-    path (the scheduler's tokens must equal it), a chunked prefill on
-    each engine, then the launcher's ring path on minicpm3-4b.  Returns
-    the phase's figures."""
-    import torch
-    from repro_torch.kernels import ops
-    t0 = time.perf_counter()
-    finite.update(bad=0, seen=0)
-    cfgs = phase9_cfgs()
-    new_tokens = 32
-    prompts = make_prompts(np.random.default_rng(SEED + 90), PROMPT_VOCAB)
-    sched_prompts = make_sched_prompts(np.random.default_rng(SEED + 91),
-                                       PROMPT_VOCAB)
-    zoo = build_zoo(dev, cfgs, list(MLA_PAGES), prompts + sched_prompts,
-                    vocab=PROMPT_VOCAB, dtype=torch.bfloat16,
-                    on_logits=on_logits)
-    log(f"phase 9 zoo: setup {zoo['setup_s']:.1f} s, threshold "
-        f"{zoo['threshold']:.6f}")
-    out = {"decode_graphs": check_decode_graphs(dev, zoo),
-           "pools": check_phase9_pools(zoo)}
+def serve_zoo(dev, zoo, cfgs, prompts, sched_prompts, finite, tag, *,
+              new_tokens: int = 32) -> dict:
+    """Phase 9's flow on a zoo at full width behind the token-probe mux:
+    the decode graphs' checks, the direct path graphed and eager, the
+    scheduler path, the same prompts again on the direct path (the
+    scheduler's tokens must equal it), a chunked prefill on each engine,
+    every sampled logit finite.  Returns the figures, with per model the
+    admission ms, TTFT p50 / p99, decode tokens/s and median step ms
+    graphed / eager."""
+    out = {"decode_graphs": check_decode_graphs(dev, zoo)}
     direct, out["direct_steps"] = serve_direct(dev, zoo, prompts, cfgs,
                                                new_tokens=new_tokens)
     sched = serve_scheduler(dev, zoo, sched_prompts, new_tokens=new_tokens)
-    log(f"phase 9, scheduler path: {sched['completed']} requests in "
+    log(f"{tag}, scheduler path: {sched['completed']} requests in "
         f"{sched['wall_s']:.2f} s, {sched['decode_batches']} decode batches "
         f"({sched['mixed_admission_batches']} mixed), launches "
         f"{sched['launches']}")
@@ -2821,11 +3229,11 @@ def mla_phase(dev, on_logits, finite, profile: bool) -> dict:
     differ = [i for i, (p, o, t) in enumerate(zip(
         sched_prompts, sched["outs"], replay))
         if list(np.asarray(o)[len(p):]) != t]
-    check(not differ, f"phase 9: the scheduler's tokens differ from the "
+    check(not differ, f"{tag}: the scheduler's tokens differ from the "
           f"direct path's on the same prompts for requests {differ}")
     out["chunked_prefill"] = check_chunked_prefill(dev, zoo)
     check(finite["seen"] > 0 and finite["bad"] == 0,
-          f"phase 9: {finite['bad']} of {finite['seen']} logits tensors not "
+          f"{tag}: {finite['bad']} of {finite['seen']} logits tensors not "
           f"finite")
     by_model = {}
     for m, eng in enumerate(zoo["engines"]):
@@ -2847,10 +3255,50 @@ def mla_phase(dev, on_logits, finite, profile: bool) -> dict:
     out.update(by_model=by_model, direct_launches=direct["launches"],
                scheduler_launches=sched["launches"],
                scheduler_ttft_ms=[sched["ttft_p50_ms"], sched["ttft_p99_ms"]])
+    return out
+
+
+def free_zoo(tag: str) -> float:
+    """After a zoo's last reference is dropped: collect, empty the
+    cache, and hold the device memory still allocated under 1 GB.
+    Returns it in GB."""
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() / 1e9
+    log(f"{tag} freed: {held:.3f} GB allocated; largest live CUDA tensors "
+        f"{live_cuda_tensors()}")
+    check(held < 1.0, f"{tag} still holds {held:.2f} GB of device memory")
+    return held
+
+
+def mla_phase(dev, on_logits, finite, profile: bool) -> dict:
+    """Phase 9: minicpm3-4b (MLA, K1's latent form, bf16 latent pool)
+    and olmo-1b (int8 pool, K1's int8 form) at full width behind the
+    token-probe mux: :func:`serve_zoo` and the pools' dtypes, then the
+    launcher's ring path on minicpm3-4b.  Returns the phase's
+    figures."""
+    import torch
+    from repro_torch.kernels import ops
+    t0 = time.perf_counter()
+    finite.update(bad=0, seen=0)
+    cfgs = phase9_cfgs()
+    new_tokens = 32
+    prompts = make_prompts(np.random.default_rng(SEED + 90), PROMPT_VOCAB)
+    sched_prompts = make_sched_prompts(np.random.default_rng(SEED + 91),
+                                       PROMPT_VOCAB)
+    zoo = build_zoo(dev, cfgs, list(MLA_PAGES), prompts + sched_prompts,
+                    vocab=PROMPT_VOCAB, dtype=torch.bfloat16,
+                    on_logits=on_logits)
+    log(f"phase 9 zoo: setup {zoo['setup_s']:.1f} s, threshold "
+        f"{zoo['threshold']:.6f}")
+    out = serve_zoo(dev, zoo, cfgs, prompts, sched_prompts, finite,
+                    "phase 9", new_tokens=new_tokens)
+    out["pools"] = check_phase9_pools(zoo)
     if profile:
         rng = np.random.default_rng(SEED + 94)
-        mla_eng = zoo["engines"][0]
-        out["prefill_profile"] = profile_prefill(mla_eng, rng, 1024)
+        out["prefill_profile"] = profile_prefill(zoo["engines"][0], rng,
+                                                 1024)
         log(f"  phase 9 prefill profile {json.dumps(out['prefill_profile'])}")
         prof_run = serve(dev, zoo, prompts, new_tokens=new_tokens,
                          profile_step=2)
@@ -2871,14 +3319,270 @@ def mla_phase(dev, on_logits, finite, profile: bool) -> dict:
     check(finite["seen"] > 0 and finite["bad"] == 0,
           f"phase 9 ring: {finite['bad']} of {finite['seen']} logits tensors "
           f"not finite")
-    out["ring"] = {k: ring[k] for k in (
-        "prefill_ms", "decode_tokens_per_s", "eager_decode_tokens_per_s",
-        "median_decode_step_ms", "capture_s", "steps", "prefills",
-        "launches", "profile")}
+    out["ring"] = {k: ring[k] for k in RING_KEYS}
     gc.collect()
     torch.cuda.empty_cache()
     out["wall_s"] = time.perf_counter() - t0
     log(f"phase 9, MLA and int8 pools served: {out['wall_s']:.1f} s wall")
+    return out
+
+
+RING_KEYS = ("prefill_ms", "decode_tokens_per_s", "eager_decode_tokens_per_s",
+             "median_decode_step_ms", "capture_s", "steps", "prefills",
+             "launches", "profile")
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: the zoo's remaining models served (gemma2-27b, olmoe-1b-7b)
+# ---------------------------------------------------------------------------
+
+ZOO_MAX_LEN = 8192           # gemma2's zoo: prompts past its 4096 window
+# pages of 64: olmo-1b 3.2 GB, gemma2-27b 7.7 GB (46 layers x 2 x 16 x 128
+# bf16 = 0.377 MB a token) beside 54.5 GB of gemma2 weights
+ZOO_A_PAGES = (384, 320)
+ZOO_B_PAGES = (512, 512)     # olmo-1b 4.3 GB, olmoe-1b-7b 4.3 GB
+LONG_PROMPTS = (4608, 5100)  # gemma2 past its window, not page multiples
+WINDOW_TOKENS = 8            # greedy tokens of the ring / paged cross-check
+
+
+def zoo_a_cfgs():
+    from repro_torch.configs import get_config
+    return [get_config("olmo-1b"), get_config("gemma2-27b")]
+
+
+def zoo_b_cfgs():
+    from repro_torch.configs import get_config
+    return [get_config("olmo-1b"), get_config("olmoe-1b-7b")]
+
+
+def weights_read(eng) -> dict:
+    """The weight bytes one paged decode step reads, over HBM bandwidth:
+    every parameter but an untied embedding table (a step gathers B of
+    its rows); with MoE also the bytes one token's top-k experts would
+    read, where the reference's dispatch runs every expert."""
+    cfg = eng.cfg
+    total = sum(t.numel() * t.element_size() for t in _leaves(eng.params))
+    if not cfg.tie_embeddings:
+        total -= eng.params["embed"].numel() * eng.params["embed"].element_size()
+    out = {"weights_read_gb": total / 1e9,
+           "weights_read_ms": total / HBM_BYTES_PER_S * 1e3}
+    experts = sum(t.numel() * t.element_size()
+                  for blk in eng.params["blocks"].values() if "moe" in blk
+                  for k, t in blk["moe"].items() if k in ("up", "gate", "down"))
+    if experts:
+        active = total - experts * (1 - cfg.num_experts_per_tok
+                                    / cfg.num_experts)
+        out.update(expert_weights_gb=experts / 1e9,
+                   active_weights_gb=active / 1e9,
+                   active_weights_ms=active / HBM_BYTES_PER_S * 1e3)
+    return out
+
+
+def serve_long_prompts(dev, eng, pages: int) -> dict:
+    """gemma2's engine alone, whatever the mux would pick: prompts past
+    its 4096-token window admitted whole (K3 with the window in every
+    swa layer) on a fresh pool, then decoded together (K1 with the
+    window).  Checks the launches by layer kind: K3 layers x prefills,
+    ``flash_attention_window`` swa layers x prefills, K1 layers x steps,
+    ``paged_attention_window`` swa layers x steps; every logit finite;
+    the pool drains.  Returns each prefill's ms and the launches."""
+    import torch
+    from repro_torch.kernels import ops
+    cfg, lengths, new_tokens = eng.cfg, LONG_PROMPTS, WINDOW_TOKENS
+    rng = np.random.default_rng(SEED + 104)
+    prompts = [rng.integers(0, PROMPT_VOCAB, n).astype(np.int32)
+               for n in lengths]
+    eng.init_paged(num_pages=pages, page_size=64, decode_batch=8,
+                   logit_cache=8)
+    eng.capture_decode_steps()
+    ops.reset_launches()
+    seqs, prefill_ms = [], []
+    for p in prompts:
+        t = time.perf_counter()
+        seqs.append(eng.prefill_into_pages(p, max_new_tokens=new_tokens))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        prefill_ms.append((time.perf_counter() - t) * 1e3)
+    prefilled = dict(ops.launches)
+    steps = 0
+    while not all(s.done for s in seqs):
+        eng.decode_step_batch([s for s in seqs if not s.done])
+        steps += 1
+    launches = dict(ops.launches)
+    for s in seqs:
+        check(len(s.tokens) == new_tokens,
+              f"{cfg.name}: a long prompt made {len(s.tokens)} tokens")
+        eng.pool.release(s)
+    check(eng.pool.pages_in_use == 0,
+          f"{cfg.name}: {eng.pool.pages_in_use} pages held after the long "
+          f"prompts")
+    n, swa = len(prompts), window_layers(cfg)
+    want = {"flash_attention": cfg.num_layers * n,
+            "flash_attention_wgmma": cfg.num_layers * n,
+            "flash_attention_window": swa * n,
+            "paged_attention": cfg.num_layers * steps,
+            "paged_attention_window": swa * steps}
+    got = {k: launches[k] for k in want}
+    check(swa > 0 and got == want and prefilled["paged_attention"] == 0,
+          f"{cfg.name} long prompts: launches {got}, expected {want} "
+          f"({n} prefills, {steps} steps, {swa} swa layers)")
+    out = {"prompt_tokens": list(lengths), "prefill_ms": prefill_ms,
+           "decode_steps": steps, "launches": got}
+    log(f"{cfg.name} past its window: {json.dumps(out)}")
+    return out
+
+
+def window_cross_check(dev, eng, pages: int) -> dict:
+    """One prompt past the window on both of gemma2's cache paths: the
+    paged path (``prefill_into_pages``: K3 over the page-padded prompt,
+    then K1 decode steps with the window over the pool) and the same
+    engine's ``generate`` (the ring path: K3 over the prompt, the swa
+    layers' 4096-slot ring wrapped by the prefill, the full layers'
+    holding everything, ring decode steps), each feeding its own greedy
+    tokens.  The first-token logits must agree within ``CHUNK_TOL`` and
+    the tokens be the same, or the reason is logged; logits more than a
+    tenth of their norm apart, at the first token or at a step both
+    paths reached with the same tokens, fail."""
+    import torch
+    n_tokens, new_tokens = LONG_PROMPTS[-1], WINDOW_TOKENS
+    rng = np.random.default_rng(SEED + 105)
+    prompt = rng.integers(0, PROMPT_VOCAB, n_tokens).astype(np.int32)
+    eng.init_paged(num_pages=pages, page_size=64, decode_batch=8,
+                   logit_cache=8)
+    eng.capture_decode_steps()
+    paged, ring = [], []
+    sample_rows = eng._sample_rows
+
+    def recorded(logits, *args, **kw):
+        paged.append(torch.as_tensor(logits)[0].float().cpu())
+        return sample_rows(logits, *args, **kw)
+    eng._sample_rows = recorded
+    try:
+        seq = eng.prefill_into_pages(prompt, max_new_tokens=new_tokens)
+        while not seq.done:
+            eng.decode_step_batch([seq])
+    finally:
+        eng._sample_rows = sample_rows
+    eng.pool.release(seq)
+    pick = eng._pick
+
+    def picked(logits, *args, **kw):
+        ring.append(logits[0].float().cpu())
+        return pick(logits, *args, **kw)
+    eng._pick = picked
+    try:
+        res = eng.generate(prompt[None], max_new_tokens=new_tokens)
+    finally:
+        eng._pick = pick
+    ring_tokens = res["tokens"][0, n_tokens:].tolist()
+    check(len(paged) == len(ring) == new_tokens,
+          f"{eng.cfg.name}: {len(paged)} paged and {len(ring)} ring logits "
+          f"rows for {new_tokens} tokens")
+    steps = []
+    for i, (a, b) in enumerate(zip(paged, ring)):
+        if i and seq.tokens[:i] != ring_tokens[:i]:
+            break                    # the paths fed different tokens
+        steps.append({"max_diff": (a - b).abs().max().item(),
+                      "rel_l2": ((a - b).norm() / a.norm()).item()})
+    same = seq.tokens == ring_tokens
+    first = steps[0]
+    worst = max(st["rel_l2"] for st in steps)
+    check(bool(all(torch.isfinite(x).all() for x in paged + ring)),
+          f"{eng.cfg.name}: non-finite logits on the paged or ring path")
+    check(worst <= 0.1, f"{eng.cfg.name}: the paged and ring paths' logits "
+          f"are {worst:.3f} of their norm apart past the window")
+    if first["max_diff"] > CHUNK_TOL or not same:
+        log(f"  {eng.cfg.name} window cross-check: first-token max logit "
+            f"diff {first['max_diff']:.3e} (tol {CHUNK_TOL:g}), tokens "
+            f"{'equal' if same else 'differ'} (paged {seq.tokens}, ring "
+            f"{ring_tokens}): bf16 through {eng.cfg.num_layers} layers, the "
+            f"paged prefill's GEMMs over {-(-n_tokens // 64) * 64} padded "
+            f"rows and the ring's over {n_tokens}; decode attends through "
+            f"K1 over bf16 pages (bf16 P) on one path and in fp32 over the "
+            f"ring on the other")
+    out = {"prompt_tokens": n_tokens, "first_token": [seq.tokens[0],
+                                                      ring_tokens[0]],
+           "tokens_equal": same, "steps_compared": len(steps),
+           "first_max_diff": first["max_diff"],
+           "first_rel_l2": first["rel_l2"], "worst_rel_l2": worst,
+           "by_step": steps, "ring_prefill_ms": res["prefill_s"] * 1e3}
+    log(f"{eng.cfg.name} window cross-check: {json.dumps(out)}")
+    return out
+
+
+def zoo_phase(dev, on_logits, finite, profile: bool) -> dict:
+    """Phase 10, the rest of the reference's single-card LLM zoo served:
+    zoo A, olmo-1b + gemma2-27b at their published configs (random bf16
+    weights, both engines at ``max_len`` 8192), through
+    :func:`serve_zoo`, gemma2's prompts past its window
+    (:func:`serve_long_prompts`) and its paged against its ring path
+    there (:func:`window_cross_check`); then zoo B, olmo-1b +
+    olmoe-1b-7b, through :func:`serve_zoo` and olmoe on the launcher's
+    ring path.  Returns the phase's figures."""
+    import torch
+    from repro_torch.kernels import ops
+    t0 = time.perf_counter()
+    out = {}
+    for key, cfgs, pages, max_len in (("A", zoo_a_cfgs(), ZOO_A_PAGES,
+                                       ZOO_MAX_LEN),
+                                      ("B", zoo_b_cfgs(), ZOO_B_PAGES, 2048)):
+        finite.update(bad=0, seen=0)
+        tag = f"phase 10 zoo {key}"
+        prompts = make_prompts(np.random.default_rng(SEED + 100),
+                               PROMPT_VOCAB)
+        sched_prompts = make_sched_prompts(np.random.default_rng(SEED + 101),
+                                           PROMPT_VOCAB)
+        zoo = build_zoo(dev, cfgs, list(pages), prompts + sched_prompts,
+                        max_len=max_len, vocab=PROMPT_VOCAB,
+                        dtype=torch.bfloat16, on_logits=on_logits)
+        built = torch.cuda.memory_allocated() / 1e9
+        log(f"{tag} ({', '.join(c.name for c in cfgs)}): setup "
+            f"{zoo['setup_s']:.1f} s, threshold {zoo['threshold']:.6f}, "
+            f"{built:.3f} GB allocated")
+        res = serve_zoo(dev, zoo, cfgs, prompts, sched_prompts, finite, tag)
+        res.update(setup_s=zoo["setup_s"], memory_gb_built=built,
+                   max_len=max_len, pages=list(pages))
+        for name, read in [(e.cfg.name, weights_read(e))
+                           for e in zoo["engines"]]:
+            res["by_model"][name].update(read)
+        big = zoo["engines"][1]
+        if key == "A":
+            res["long_prompts"] = serve_long_prompts(dev, big, pages[1])
+            res["window_cross_check"] = window_cross_check(dev, big, pages[1])
+        if profile:
+            rng = np.random.default_rng(SEED + 106)
+            res["prefill_profile"] = profile_prefill(big, rng, 1024)
+            log(f"  {tag} prefill profile "
+                f"{json.dumps(res['prefill_profile'])}")
+            prof_run = serve(dev, zoo, prompts, profile_step=2)
+            res["decode_step_profile"] = {e["model"]: e["profile"]
+                                          for e in prof_run["engines"]}
+            for name, p in res["decode_step_profile"].items():
+                log(f"  {tag} graphed decode step profile {name}: "
+                    f"{json.dumps(p)}")
+        res["memory_gb_peak"] = torch.cuda.max_memory_allocated() / 1e9
+        check(finite["seen"] > 0 and finite["bad"] == 0,
+              f"{tag}: {finite['bad']} of {finite['seen']} logits tensors "
+              f"not finite")
+        out[key] = res
+        del zoo, big
+        res["memory_gb_freed"] = free_zoo(tag)
+        torch.cuda.reset_peak_memory_stats()
+    finite.update(bad=0, seen=0)
+    ops.reset_launches()
+    ring = serve_ring(dev, "olmoe-1b-7b", prompt_len=512, new_tokens=16,
+                      step_times=16, profile=profile, on_logits=on_logits)
+    log(f"phase 10, olmoe-1b-7b ring path: {json.dumps(ring)}")
+    check_ring(ring, scan=False)
+    check(finite["seen"] > 0 and finite["bad"] == 0,
+          f"phase 10 ring: {finite['bad']} of {finite['seen']} logits "
+          f"tensors not finite")
+    out["olmoe_ring"] = {k: ring[k] for k in RING_KEYS}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"phase 10, the zoo's remaining models served: {out['wall_s']:.1f} s "
+        f"wall")
     return out
 
 
@@ -3755,10 +4459,10 @@ def main(argv) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="also run decode step 2 of each engine and one "
-                         "1024-token whole-prompt prefill per engine, and "
-                         "one falcon-mamba-7b prefill and ring decode step "
-                         "(phase 6), under torch.profiler and print the "
-                         "breakdowns")
+                         "1024-token whole-prompt prefill per engine (per "
+                         "zoo's larger model in phases 9 and 10), and one "
+                         "prefill and ring decode step of each ring run, "
+                         "under torch.profiler and print the breakdowns")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3795,6 +4499,7 @@ def main(argv) -> int:
     k1 = time_paged_attention(dev)
     k1_mla_err = check_paged_mla(dev)
     k1_mla = time_paged_mla(dev)
+    k1_g2 = gemma2_paged(dev)
     k2_err = check_mux_score(dev)
     k2 = time_mux_score(dev)
     probe_srv, probe_tokens = probe_server(dev)
@@ -3802,8 +4507,10 @@ def main(argv) -> int:
                                                    probe_tokens)}
     k3_err = check_flash_attention(dev)
     k3 = time_flash_attention(dev)
+    k3_g2 = gemma2_flash(dev)
     check_model_against_cpu(dev)
     check_model_against_cpu(dev, tiny_mla_config())
+    check_model_against_cpu(dev, tiny_moe_config())
     k4_err = check_selective_scan(dev)
     k4 = time_selective_scan(dev)
     check_mamba_against_cpu(dev)
@@ -3862,13 +4569,7 @@ def main(argv) -> int:
 
     # phase 6: the ring-cache path of the launcher, after freeing the zoo
     del zoo
-    gc.collect()
-    torch.cuda.empty_cache()
-    held = torch.cuda.memory_allocated()
-    log(f"zoo freed: {held / 1e9:.3f} GB allocated; largest live CUDA "
-        f"tensors {live_cuda_tensors()}")
-    check(held < 1e9, f"the zoo of phases 3-5 still holds {held / 1e9:.2f} "
-          f"GB of device memory")
+    free_zoo("the zoo of phases 3-5")
     finite.update(bad=0, seen=0)
     ring = {}
     for arch, plen, new, scan in RING_RUNS:
@@ -3889,6 +4590,8 @@ def main(argv) -> int:
     paper, paper_state = paper_phase(dev)
     # phase 9: MLA (minicpm3-4b) and an int8 pool (olmo-1b) served
     mla = mla_phase(dev, on_logits, finite, args.profile)
+    # phase 10: gemma2-27b and olmoe-1b-7b served (the zoo's remaining models)
+    zoo10 = zoo_phase(dev, on_logits, finite, args.profile)
     # last: its torch.profiler window leaves the host slower at every later
     # launch, which would show in the served phases' decode rates
     probe["by_path"] = time_probe(dev, probe_srv, probe_tokens)
@@ -3900,6 +4603,7 @@ def main(argv) -> int:
 
     launches = run["launches"]
     mla_launches = mla["scheduler_launches"]
+    zoo_launches = {k: zoo10[k]["scheduler_launches"] for k in ("A", "B")}
     meta_form = image["meta_form"] + paper["served"]["meta_form"]
     kernels = [
         {"name": "paged_attention", "route": "cuda",
@@ -3911,7 +4615,10 @@ def main(argv) -> int:
          "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
          "library_ms": None,
          "phase9_launches": {k: mla_launches[k] for k in K1_FORMS},
-         "mla_shape": k1_mla},
+         "mla_shape": k1_mla,
+         "phase10_launches": {z: {k: zl[k] for k in K1_FORMS}
+                              for z, zl in zoo_launches.items()},
+         "g2_shape": k1_g2},
         {"name": "mux_score", "route": "cuda",
          "source": "src/repro_torch/csrc/mux_score.cu",
          "replaces": "src/repro/kernels/mux_score.py:47",
@@ -3934,7 +4641,10 @@ def main(argv) -> int:
          "phase9_launches": {
              k: mla_launches[k] for k in ("flash_attention",
                                           "flash_attention_wgmma")},
-         "mla_shapes": k3["mla_shapes"]},
+         "mla_shapes": k3["mla_shapes"],
+         "phase10_launches": {z: {k: zl[k] for k in K3_COUNTS}
+                              for z, zl in zoo_launches.items()},
+         "g2_shape": k3_g2},
         {"name": "selective_scan", "route": "cuda",
          "source": "src/repro_torch/csrc/selective_scan.cu",
          "replaces": "src/repro/kernels/selective_scan.py:65",
@@ -3947,7 +4657,12 @@ def main(argv) -> int:
     # run (K4); phase9_launches: phase 9's scheduler run (minicpm3-4b +
     # olmo-1b int8; K1 by form: all, int8 pages, the MLA latent); K1's
     # mla_shape / K3's mla_shapes: their times at minicpm3-4b's decode /
-    # prefill shapes; plain_ms is the plain PyTorch version's time, no
+    # prefill shapes; phase10_launches: phase 10's scheduler runs (zoo A:
+    # olmo-1b + gemma2-27b, zoo B: olmo-1b + olmoe-1b-7b; by form, windowed
+    # launches those of gemma2's swa layers); g2_shape: K1's / K3's rows at
+    # gemma2's decode / prefill shapes (K3 with the window and without,
+    # library_ms flex_attention's; cap_bound: both on q scaled 16x);
+    # plain_ms is the plain PyTorch version's time, no
     # yardstick
     # of speed; K2's ms / bound are its head form's at the served probe
     # shape (graph_ms: the same as a CUDA graph, as the probe runs it);
@@ -3989,6 +4704,7 @@ def main(argv) -> int:
     print(json.dumps({"image_mux": image}), flush=True)
     print(json.dumps({"paper": paper}), flush=True)
     print(json.dumps({"mla_phase": mla}), flush=True)
+    print(json.dumps({"zoo_phase": zoo10}), flush=True)
     return finish()
 
 

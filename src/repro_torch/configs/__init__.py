@@ -14,6 +14,8 @@ ARCHITECTURES: Dict[str, str] = {
     "codeqwen1.5-7b": "repro_torch.configs.codeqwen15_7b",
     "falcon-mamba-7b": "repro_torch.configs.falcon_mamba_7b",
     "minicpm3-4b": "repro_torch.configs.minicpm3_4b",
+    "gemma2-27b": "repro_torch.configs.gemma2_27b",
+    "olmoe-1b-7b": "repro_torch.configs.olmoe_1b_7b",
 }
 
 

@@ -29,23 +29,55 @@ touch only scratch state, or state that is reset before its use).
 
 Capture uses ``capture_error_mode="thread_local"``: other threads may
 keep launching work (prefills on a backend's executor threads) while one
-thread captures.  A lock covers copy, replay and clone, and each call's
-stream waits for the previous call's clones, so callers on different
-threads or streams never see each other's outputs.  It is CUDA-only:
+thread captures.  Python's garbage collector is off, process-wide,
+while any capture runs: a collection then can free another ``CUDAGraph``
+(one held in a reference cycle), whose teardown is a call a capturing
+stream forbids, and the capture fails.  Captures that overlap (on
+different threads, or one inside another) share one count, so the
+collector comes back on only when the last of them ends, and only if it
+was on when the first began.  A lock covers copy, replay and clone, and
+each call's stream waits for the previous call's clones, so callers on
+different threads or streams never see each other's outputs.  It is CUDA-only:
 any argument that is not a CUDA tensor raises, and a capture that fails
 raises; nothing falls back to running the function eagerly.
 """
 from __future__ import annotations
 
+import contextlib
+import gc
 import threading
 import time
-from typing import Callable, Dict, NamedTuple, Tuple
+from typing import Callable, Dict, Iterator, NamedTuple, Tuple
 
 import torch
 
 from repro_torch.kernels import ops
 
 Signature = Tuple[Tuple[Tuple[int, ...], torch.dtype, torch.device], ...]
+
+_gc_lock = threading.Lock()
+_gc_holds = 0              # captures running now, on any thread
+_gc_was_on = False         # the collector's state when the first began
+
+
+@contextlib.contextmanager
+def _collector_held() -> Iterator[None]:
+    """Python's garbage collector off, process-wide, until the last of
+    the captures running at once ends; then back on if it was on when
+    the first began."""
+    global _gc_holds, _gc_was_on
+    with _gc_lock:
+        if _gc_holds == 0:
+            _gc_was_on = gc.isenabled()
+            gc.disable()
+        _gc_holds += 1
+    try:
+        yield
+    finally:
+        with _gc_lock:
+            _gc_holds -= 1
+            if _gc_holds == 0 and _gc_was_on:
+                gc.enable()
 
 
 class _Captured(NamedTuple):
@@ -122,7 +154,7 @@ class CudaGraphed:
         inputs = tuple(a.clone() for a in args)
         self.fn(*inputs)                      # warm-up, not kept
         graph = torch.cuda.CUDAGraph()
-        with ops.tally_launches() as tally, \
+        with _collector_held(), ops.tally_launches() as tally, \
                 torch.cuda.graph(graph, capture_error_mode="thread_local"):
             out = self.fn(*inputs)
         single = isinstance(out, torch.Tensor)

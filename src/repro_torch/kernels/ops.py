@@ -12,7 +12,9 @@ variant it launched (``flash_attention_wgmma`` or
 ``flash_attention_simt``), and K1's also under the form of its operands
 where it is not the plain one: ``paged_attention_int8`` (int8 pages and
 their scales) and ``paged_attention_latent`` (absorbed MLA: V read as
-the leading ``v_dim`` features of the K pages themselves).  K2's two
+the leading ``v_dim`` features of the K pages themselves).  K1 and K3
+also count a launch that masks by a sliding window (a ``swa`` layer's)
+under ``paged_attention_window`` / ``flash_attention_window``.  K2's two
 forms both count under ``mux_score``.  A call made while its thread
 captures a CUDA graph launches nothing: inside :func:`tally_launches`
 it adds to that capture's tally instead, and each replay of the graph
@@ -33,9 +35,11 @@ from repro_torch.kernels.paged_attention import (paged_attention_cuda,
 from repro_torch.kernels.selective_scan import selective_scan_cuda
 
 launches: Dict[str, int] = {"paged_attention": 0, "paged_attention_int8": 0,
-                             "paged_attention_latent": 0, "mux_score": 0,
+                             "paged_attention_latent": 0,
+                             "paged_attention_window": 0, "mux_score": 0,
                              "flash_attention": 0, "flash_attention_wgmma": 0,
-                             "flash_attention_simt": 0, "selective_scan": 0}
+                             "flash_attention_simt": 0,
+                             "flash_attention_window": 0, "selective_scan": 0}
 
 
 _capture = threading.local()
@@ -87,10 +91,14 @@ def attention(q, k, v, *, causal: bool = True,
         return blocked_attention(q, k, v, causal=causal, window=window,
                                  chunk=chunk, scale=scale,
                                  logit_cap=logit_cap)
-    return flash_attention_cuda(q.contiguous(), k.contiguous(),
-                                v.contiguous(), causal=causal, window=window,
-                                chunk=chunk, logit_cap=logit_cap, scale=scale,
-                                counts=_counts())
+    counts = _counts()
+    out = flash_attention_cuda(q.contiguous(), k.contiguous(),
+                               v.contiguous(), causal=causal, window=window,
+                               chunk=chunk, logit_cap=logit_cap, scale=scale,
+                               counts=counts)
+    if window is not None:
+        counts["flash_attention_window"] += 1
+    return out
 
 
 def paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
@@ -122,6 +130,8 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
         counts["paged_attention_int8"] += 1
     if v_dim is not None and v_pages is k_pages:
         counts["paged_attention_latent"] += 1
+    if window is not None:
+        counts["paged_attention_window"] += 1
     return out
 
 

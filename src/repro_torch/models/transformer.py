@@ -2,11 +2,12 @@
 blocks, on the paged and the ring cache paths.
 
 Port of ``repro.models.transformer`` for configs whose pattern holds
-``mixer="attn"`` or ``mixer="mla"`` layers with a dense (or no) MLP —
-olmo-1b, codeqwen1.5-7b and minicpm3-4b among them — or
-``mixer="mamba"`` layers with no MLP (falcon-mamba-7b).  MoE,
-cross-attention, codebook heads, sinusoidal positions and
-``verify_paged`` are not ported yet and raise ``NotImplementedError``.
+``mixer="attn"`` or ``mixer="mla"`` layers with a dense, MoE or no MLP —
+olmo-1b, codeqwen1.5-7b, minicpm3-4b, gemma2-27b and olmoe-1b-7b among
+them — or ``mixer="mamba"`` layers with no MLP (falcon-mamba-7b).
+Mamba layers with an MLP (jamba), cross-attention, codebook heads,
+sinusoidal positions and ``verify_paged`` are not ported yet and raise
+``NotImplementedError``.
 An MLA layer caches its latent (``kv_lora + d_rope`` features a token,
 one "KV head") in bf16 when an int8 pool is asked for, as the JAX
 package does: latent quantisation is not supported.
@@ -41,6 +42,7 @@ from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as ssm
 from repro_torch.models import mla as mla_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (apply_mlp, apply_norm, apply_rope,
                                        dense_init, embed_init, init_mlp,
                                        init_norm, softcap)
@@ -50,14 +52,15 @@ Params = Dict[str, Any]
 
 def _check_supported(cfg: ModelConfig) -> None:
     for spec in cfg.pattern:
-        attn_ok = (spec.mixer in ("attn", "mla")
-                   and spec.mlp in ("dense", "none"))
-        mamba_ok = spec.mixer == "mamba" and spec.mlp == "none"
-        if not (attn_ok or mamba_ok):
+        if spec.mixer == "mamba" and spec.mlp != "none":
             raise NotImplementedError(
-                f"{cfg.name}: the port runs dense self-attention and MLA "
-                f"blocks and mamba blocks without an MLP only, got "
-                f"mixer={spec.mixer!r} mlp={spec.mlp!r}")
+                f"{cfg.name}: mamba blocks with an MLP (jamba's hybrid "
+                f"layers) are not ported; they wait for the sharded "
+                f"models, got mlp={spec.mlp!r}")
+        if spec.mixer not in ("attn", "mla", "mamba"):
+            raise NotImplementedError(
+                f"{cfg.name}: the port runs self-attention, MLA and mamba "
+                f"blocks only, got mixer={spec.mixer!r}")
     if cfg.num_codebooks or cfg.pos_embed not in ("rope", "none"):
         raise NotImplementedError(
             f"{cfg.name}: codebook heads and sinusoidal positions are not "
@@ -87,12 +90,18 @@ def _init_layer(gen, spec: LayerSpec, cfg: ModelConfig, dt, dev) -> Params:
     p: Params = {"norm1": init_norm(d, cfg.norm, dt, device=dev), "attn": a}
     if cfg.use_post_norm:
         p["norm1_post"] = init_norm(d, cfg.norm, dt, device=dev)
-    if spec.mlp == "dense":
+    if spec.mlp in ("dense", "moe"):
         p["norm2"] = init_norm(d, cfg.norm, dt, device=dev)
         if cfg.use_post_norm:
             p["norm2_post"] = init_norm(d, cfg.norm, dt, device=dev)
+    if spec.mlp == "dense":
         p["mlp"] = init_mlp(gen, d, cfg.d_ff, gated=cfg.gated_mlp, dtype=dt,
                             device=dev)
+    elif spec.mlp == "moe":
+        p["moe"] = moe_mod.init_moe(
+            gen, d_model=d, num_experts=cfg.num_experts,
+            moe_d_ff=cfg.moe_d_ff, shared_d_ff=cfg.shared_expert_d_ff or None,
+            gated=cfg.gated_mlp, dtype=dt, device=dev)
     return p
 
 
@@ -313,7 +322,9 @@ def _mixer_forward(p: Params, spec: LayerSpec, cfg: ModelConfig, x, *,
 
 
 def _block_forward(p: Params, spec: LayerSpec, cfg: ModelConfig, h, **kw):
-    """One transformer block (pre-norm, optional post-norms)."""
+    """One transformer block (pre-norm, optional post-norms).  An MoE
+    MLP dispatches dropless in decode and groups tokens only in train;
+    its aux loss is dropped here, as the JAX serving paths drop it."""
     out = _mixer_forward(p, spec, cfg,
                          apply_norm(p["norm1"], h, cfg.norm, cfg.norm_eps),
                          **kw)
@@ -324,7 +335,16 @@ def _block_forward(p: Params, spec: LayerSpec, cfg: ModelConfig, h, **kw):
     h = h + out
     if spec.mlp != "none":
         y = apply_norm(p["norm2"], h, cfg.norm, cfg.norm_eps)
-        y = apply_mlp(p["mlp"], y, gated=cfg.gated_mlp, act=cfg.act)
+        if spec.mlp == "moe":
+            mode = kw["mode"]
+            y, _ = moe_mod.moe_ffn(
+                p["moe"], y, num_experts=cfg.num_experts,
+                top_k=cfg.num_experts_per_tok, router_act=cfg.router_act,
+                capacity_factor=cfg.capacity_factor, act=cfg.act,
+                gated=cfg.gated_mlp, dropless=(mode == "decode"),
+                group_tokens=cfg.moe_group_tokens if mode == "train" else 0)
+        else:
+            y = apply_mlp(p["mlp"], y, gated=cfg.gated_mlp, act=cfg.act)
         if cfg.use_post_norm:
             y = apply_norm(p["norm2_post"], y, cfg.norm, cfg.norm_eps)
         if cfg.residual_scale is not None:

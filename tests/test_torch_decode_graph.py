@@ -225,3 +225,106 @@ def test_graph_capture_takes_cuda_tensors_only():
         with pytest.raises((RuntimeError, ValueError)):
             graphed.capture(torch.zeros((2, 3), device=dev))
     assert not graphed._graphs and not ran
+
+
+def test_capture_holds_the_garbage_collector_off(monkeypatch):
+    """The captured call runs with Python's collector off (a collection
+    there can tear down another graph, which a capturing stream forbids)
+    and the collector is on again after it, also when the capture
+    raises; the warm-up runs with it on.  The CUDA graph API is stubbed:
+    there is no card here."""
+    import contextlib
+    import gc
+
+    seen = []
+
+    @contextlib.contextmanager
+    def fake_graph(graph, **kw):
+        yield
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", lambda: object())
+    monkeypatch.setattr(torch.cuda, "graph", fake_graph)
+
+    def step(t):
+        seen.append(gc.isenabled())
+        if len(seen) == 4:
+            raise RuntimeError("capture failed")
+        return t + 1
+
+    graphed = CudaGraphed(step, "step")
+    assert gc.isenabled()
+    args = (torch.zeros(3),)
+    graphed._capture(("sig",), args)
+    assert seen == [True, False] and gc.isenabled()
+    with pytest.raises(RuntimeError, match="capture failed"):
+        graphed._capture(("other",), args)
+    assert seen == [True, False, True, False] and gc.isenabled()
+
+
+def test_overlapping_captures_keep_the_collector_off(monkeypatch):
+    """Two captures that overlap, on two threads, share the collector's
+    hold: when the one that began first ends, the collector stays off
+    while the other still captures, and it is on again only after the
+    last ends.  One capture inside another does the same, and a
+    collector that was off before stays off.  The CUDA graph API is
+    stubbed: there is no card here."""
+    import contextlib
+    import gc
+    import threading
+
+    @contextlib.contextmanager
+    def fake_graph(graph, **kw):
+        yield
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", lambda: object())
+    monkeypatch.setattr(torch.cuda, "graph", fake_graph)
+    args = (torch.zeros(3),)
+
+    def held(inside, go):
+        calls = []
+
+        def fn(t):
+            calls.append(1)
+            if len(calls) == 2:          # the capture, not the warm-up
+                inside.set()
+                assert go.wait(10)
+            return t + 1
+        return fn
+
+    ev = {n: (threading.Event(), threading.Event()) for n in "xy"}
+    threads = {n: threading.Thread(target=CudaGraphed(held(*ev[n]), n)
+                                   ._capture, args=((n,), args))
+               for n in "xy"}
+    assert gc.isenabled()
+    try:
+        threads["x"].start()
+        assert ev["x"][0].wait(10) and not gc.isenabled()
+        threads["y"].start()
+        assert ev["y"][0].wait(10)
+        ev["x"][1].set()                 # the first to begin ends first
+        threads["x"].join(10)
+        assert not threads["x"].is_alive()
+        assert not gc.isenabled()        # y still captures
+        ev["y"][1].set()
+        threads["y"].join(10)
+        assert not threads["y"].is_alive() and gc.isenabled()
+    finally:
+        for inside, go in ev.values():
+            go.set()
+
+    inner = CudaGraphed(lambda t: t + 2, "inner")
+    states = []
+
+    def outer_fn(t):
+        inner._capture((len(states),), (t,))
+        states.append(gc.isenabled())
+        return t
+
+    CudaGraphed(outer_fn, "outer")._capture(("o",), args)
+    assert states == [True, False] and gc.isenabled()
+    gc.disable()
+    try:
+        CudaGraphed(lambda t: t + 3, "off")._capture(("off",), args)
+        assert not gc.isenabled()
+    finally:
+        gc.enable()

@@ -182,7 +182,8 @@ def test_paged_caches_refuse_mamba_and_unported_mixers_raise():
     cfg = get_smoke_config("falcon-mamba-7b")
     with pytest.raises(NotImplementedError, match="paged"):
         ttf.init_caches(cfg, num_pages=4, page_size=4, device="cpu")
-    for spec in (LayerSpec(mixer="cross_attn"), LayerSpec(mlp="moe"),
+    for spec in (LayerSpec(mixer="cross_attn"),
+                 LayerSpec(mixer="mamba", mlp="moe"),
                  LayerSpec(mixer="mamba", mlp="dense")):
         bad = ModelConfig(name="bad", arch_type="dense", num_layers=1,
                           d_model=8, d_ff=8, vocab_size=8, pattern=(spec,))
