@@ -290,7 +290,34 @@ Phases, each of which must pass:
    step over 3.35 TB/s) is printed beside its step.  With
    ``--profile``, a 1024-token prefill of each zoo's larger model and a
    graphed decode step of each engine.
-11. Last, since a ``torch.profiler`` window slows the host's later
+11. Speculative multiplexed decoding, ``SpeculativeBackend(
+   InProcessBackend(target), draft)`` under ``PagedLLMScheduler``, page
+   64, decode batch 8, draft length 4, random bf16 weights from seeded
+   generators.  The draft is olmo-1b at its published config; the
+   target is its 16 layers followed by 16 whose ``wo`` and MLP ``down``
+   are zeroed, with its embedding and final norm (2.25 B params: the
+   weight surgery of ``benchmarks/bench_spec_decode.py``), so drafts
+   are accepted by construction; a second pair drafts with olmo-1b from
+   another seed, whose drafts are nearly all rejected (rollback, the
+   acceptance-EMA fallback).  Target ``max_len`` 2048, the draft's 2112
+   (lazy decode allocation, no span reclaim).  8 prompts of 128-512
+   tokens drafting 4 and 2 of 1024 tokens at k = 0 (a length
+   threshold), 24 greedy tokens each at Poisson 4/s, through each pair
+   and through a plain ``InProcessBackend`` on the same target.
+   Checks: every request answered; each spec request's tokens equal
+   the plain target's, or first differ where the plain step's top-2
+   logits lie within 2e-2 (logged with the gap: the verify step's
+   gathered fp32-score attention and K1 round differently); both pools
+   drained; structural acceptance >= 0.9; the diverse pair falls back
+   at least once; speculation never turned off by a draft-engine error;
+   the verify step's graph bitwise equal to the eager step at its third
+   call; K1 = layers x decode steps on each engine, and a verify step
+   launches no kernel.  Printed: the verify step's ms at (8, 5) graphed
+   and eager and its capture seconds, the target's and the draft's
+   step ms, decode tokens/s of each run, acceptance, peak draft-pool
+   pages, each model's weights-read time, beside the card's name and
+   power limit.
+12. Last, since a ``torch.profiler`` window slows the host's later
    launches: the whole probe (weights + select) at B=1, S=64, eager
    against graphed: ms a call, host microseconds a call, and device
    busy ms and launches a probe from ``torch.profiler``, whose rows
@@ -347,7 +374,10 @@ line (phase 10 by zoo: memory after the build, per model the admission
 ms, TTFT p50 / p99, decode tokens/s direct and through the scheduler,
 median step ms graphed / eager beside its weights-read ms, the chunked
 prefills; gemma2's long prompts' prefill ms and launches and its ring
-against paged difference; olmoe's ring path; the wall seconds), the
+against paged difference; olmoe's ring path; the wall seconds), a
+``{"spec_phase": ...}`` line (phase 11: the card, the plain run's and
+each pair's decode tokens/s, counters, acceptance, steps, K1 launches,
+near-ties, the verify graph against eager, the timed steps), the
 card's name and power limit (nvidia-smi), and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the run
 exits non-zero without that last line.  It needs one CUDA card and a
@@ -3587,6 +3617,519 @@ def zoo_phase(dev, on_logits, finite, profile: bool) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 11: speculative multiplexed decoding (SpeculativeBackend)
+# ---------------------------------------------------------------------------
+
+SPEC_DRAFT_K = 4
+SPEC_NEW_TOKENS = 24
+SPEC_MAX_LEN = 2048
+SPEC_PAGES = (160, 160)      # target (32 layers, 2.7 GB), draft (1.3 GB)
+SPEC_EASY = (128, 160, 200, 256, 300, 384, 459, 512)     # k = SPEC_DRAFT_K
+SPEC_HARD = (1024, 1024)                                 # k = 0, plain
+SPEC_RATE = 4.0              # Poisson arrivals a second
+SPEC_ACCEPT_MIN = 0.9        # the structural pair's accepted / drafted
+SPEC_NEAR_TIE = 0.0625       # plain margin a first divergence may have
+SPEC_LOGIT_ABS = 0.1         # |spec - plain| logit, over compared positions
+SPEC_LOGIT_REL = 0.03        # ||spec - plain|| / ||plain||, each position
+SPEC_TIMED = 10              # calls a timed step (median host ms)
+
+
+def spec_cfgs():
+    """(draft, target): olmo-1b at its published config, and the same
+    layers followed by as many again (the target's depth)."""
+    from repro_torch.configs import get_config
+    d = get_config("olmo-1b")
+    return d, d.with_(name=f"{d.name}-x2", num_layers=2 * d.num_layers)
+
+
+def surgery_params(dparams, extra):
+    """Target params: the draft's layers followed by ``extra``'s (another
+    draw of the draft's config) with their attention ``wo`` and MLP
+    ``down`` zeroed, so that they add exactly 0 to the residual stream;
+    the draft's embedding and final norm (olmo-1b ties its head), so
+    the target's logits are the draft's at twice the layers.  The weight
+    surgery of ``benchmarks/bench_spec_decode.py``."""
+    import torch
+
+    def cat(d, e, name):
+        if isinstance(d, dict):
+            return {k: cat(d[k], e[k], k) for k in d}
+        return torch.cat([d, torch.zeros_like(e) if name in ("wo", "down")
+                          else e], 0)
+    out = {k: v for k, v in dparams.items() if k != "blocks"}
+    out["blocks"] = cat(dparams["blocks"], extra["blocks"], "blocks")
+    return out
+
+
+def spec_prompts(rng, vocab: int) -> list:
+    """8 easy prompts (128-512 tokens) and 2 hard ones (1024), shuffled."""
+    lens = list(SPEC_EASY) + list(SPEC_HARD)
+    return [rng.integers(0, vocab, lens[i]).astype(np.int32)
+            for i in rng.permutation(len(lens))]
+
+
+def spec_k(prompt) -> int:
+    """The draft length a prompt gets: a length threshold, as the JAX
+    benchmark's ``probe_k`` stands in for the mux probe's score."""
+    return 0 if len(prompt) >= SPEC_HARD[0] else SPEC_DRAFT_K
+
+
+def spec_engine(dev, cfg, params, pages, *, max_len, lazy):
+    from repro_torch.serving.engine import Engine, ServeConfig
+    eng = Engine(cfg, params, ServeConfig(max_len=max_len), device=dev)
+    eng.init_paged(num_pages=pages, page_size=64, decode_batch=8,
+                   span_reclaim=not lazy, lazy_decode_alloc=lazy)
+    return eng
+
+
+class StepLog:
+    """Counts an engine's decode steps and the K1 launches they make
+    (``ops.launches`` read around each call: the phase's device calls
+    run one at a time); with ``logits``, keeps each row's logits by
+    (prompt bytes, token index) on the device and counts non-finite
+    entries (read once, after the run)."""
+
+    def __init__(self, eng, logits=None):
+        self.eng, self.logits = eng, logits
+        self.steps = self.k1 = self.seen = 0
+        self.nonfinite = 0
+        self._rows = None
+        eng.decode_step_batch = self._decode
+        if logits is not None:
+            eng._sample_rows = self._sample
+
+    def _decode(self, seqs):
+        from repro_torch.kernels import ops
+        before = ops.launches["paged_attention"]
+        self._rows = list(seqs)
+        try:
+            return type(self.eng).decode_step_batch(self.eng, seqs)
+        finally:
+            self._rows = None
+            self.steps += 1
+            self.k1 += ops.launches["paged_attention"] - before
+
+    def _sample(self, logits, seeds, positions, temps=None):
+        import torch
+        rows = self._rows
+        if rows:
+            live = logits[:len(rows)].clone()
+            self.seen += 1
+            self.nonfinite = self.nonfinite + (~torch.isfinite(live)).sum()
+            for r, seq in enumerate(rows):
+                self.logits[(seq.prompt.tobytes(), len(seq.tokens))] = \
+                    live[r]
+        return type(self.eng)._sample_rows(self.eng, logits, seeds,
+                                           positions, temps=temps)
+
+    def close(self) -> None:
+        self.eng.__dict__.pop("decode_step_batch", None)
+        self.eng.__dict__.pop("_sample_rows", None)
+
+
+class VerifyLog:
+    """Holds each verify step's logits against the plain run's where the
+    fed context (the row's tokens and the drafts before an offset)
+    equals the plain stream's: by (prompt bytes, token index), the
+    largest |verify - plain| logit difference and its norm over the
+    plain logits' norm (one host read a step)."""
+
+    def __init__(self, eng, plain_logits, plain_tokens):
+        self.eng, self.plain, self.ptoks = eng, plain_logits, plain_tokens
+        self.diffs = {}
+        self._rows = None
+        self._inner = eng._paged_verify
+        eng.verify_step_batch = self._verify
+        eng._paged_verify = self._step
+
+    def _verify(self, rows, *, width):
+        self._rows = list(rows)
+        try:
+            return type(self.eng).verify_step_batch(self.eng, rows,
+                                                    width=width)
+        finally:
+            self._rows = None
+
+    def _step(self, packed):
+        import torch
+        logits = self._inner(packed)
+        keys, got, want = [], [], []
+        for i, (seq, drafts) in enumerate(self._rows or ()):
+            pk = seq.prompt.tobytes()
+            ctx = list(seq.tokens) + [int(d) for d in drafts]
+            for r in range(len(drafts) + 1):
+                t = len(seq.tokens) + r
+                if (pk, t) in self.plain and ctx[:t] == self.ptoks[pk][:t]:
+                    keys.append((pk, t))
+                    got.append(logits[i, r])
+                    want.append(self.plain[(pk, t)])
+        if keys:
+            want = torch.stack(want).float()
+            d = torch.stack(got).float() - want
+            stats = torch.stack([d.abs().amax(-1), d.norm(dim=-1)
+                                 / want.norm(dim=-1)], -1).cpu().numpy()
+            for key, (mx, rel) in zip(keys, stats):
+                self.diffs[key] = (float(mx), float(rel))
+        return logits
+
+    def close(self) -> None:
+        self.eng.__dict__.pop("verify_step_batch", None)
+        self.eng._paged_verify = self._inner
+
+
+class VerifyShadow:
+    """Stands in for the target's graphed verify step: call ``at`` goes
+    through a :class:`ShadowStep` (the eager step, then the graph, on
+    the same operand); every other call replays the graph alone."""
+
+    def __init__(self, graphed, at: int):
+        self.graphed, self.at, self.calls = graphed, at, 0
+        self.shadow = ShadowStep(graphed, "phase 11 verify")
+
+    def __call__(self, packed):
+        self.calls += 1
+        step = self.shadow if self.calls == self.at else self.graphed
+        return step(packed)
+
+    @property
+    def result(self):
+        return self.shadow.calls[0] if self.shadow.calls else None
+
+
+def spec_serve(dev, backend, prompts, logs) -> dict:
+    """The prompts through ``PagedLLMScheduler`` over ``backend`` (one
+    model, whole-prompt prefill), open-loop at Poisson ``SPEC_RATE``
+    (seed ``SEED``), ``SPEC_NEW_TOKENS`` greedy tokens each, after the
+    scheduler's warmup (captures included).  ``logs`` makes the
+    :class:`StepLog` of each engine once warmup is done.  Returns the
+    tokens, the snapshot, the launches and the step logs of the run."""
+    import asyncio
+
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.serving.scheduler import (PagedLLMConfig,
+                                               PagedLLMScheduler,
+                                               TrafficConfig, arrival_times,
+                                               replay)
+    sched = PagedLLMScheduler(
+        backends=[backend], cfg=PagedLLMConfig(
+            max_new_tokens=SPEC_NEW_TOKENS, prefill_chunk_pages=0))
+    t0 = time.perf_counter()
+    sched.warmup(sorted({len(p) for p in prompts}))
+    warm_s = time.perf_counter() - t0
+    times = arrival_times(TrafficConfig(rate=SPEC_RATE,
+                                        num_requests=len(prompts), seed=SEED))
+    steps = logs()
+
+    async def run():
+        async with sched:
+            futs = await replay(sched.submit, prompts, times)
+            return await asyncio.gather(*futs)
+
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        outs = asyncio.run(run())
+    finally:
+        for log_ in steps.values():
+            log_.close()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    snap = sched.snapshot()
+    busy = sched.metrics.per_model_busy_s[0]         # decode sweeps
+    check(snap["completed"] == len(prompts) and snap["failed"] == 0,
+          f"spec phase: {snap['completed']} of {len(prompts)} answered, "
+          f"{snap['failed']} failed")
+    return {"tokens": [list(np.asarray(o)[len(p):])
+                       for p, o in zip(prompts, outs)],
+            "snap": snap, "launches": dict(ops.launches), "steps": steps,
+            "wall_s": wall, "warmup_s": warm_s,
+            "decode_tokens_per_s": snap["tokens_generated"] / busy,
+            "decode_batches": snap["decode_batches"]}
+
+
+def decode_diffs(logits, plain_logits, got, want, prompts) -> dict:
+    """The spec run's decode-step logits against the plain run's where
+    the committed context equals the plain stream's (the target decodes
+    the rows that do not speculate, over K/V that verify steps wrote):
+    by (prompt bytes, token index), as ``VerifyLog.diffs``."""
+    toks = {p.tobytes(): (g, w) for p, g, w in zip(prompts, got, want)}
+    out = {}
+    for (pk, t), row in logits.items():
+        g, w = toks[pk]
+        if (pk, t) in plain_logits and g[:t] == w[:t]:
+            want = plain_logits[(pk, t)].float()
+            d = row.float() - want
+            out[(pk, t)] = (float(d.abs().max()),
+                            float(d.norm() / want.norm()))
+    return out
+
+
+def same_stream(tag, prompts, got, want, plain_logits, diffs) -> dict:
+    """Each request's spec tokens against the plain target's, and the
+    spec logits against the plain logits where the fed context equals
+    the plain stream's (``diffs``, from verify and decode steps alike):
+    the largest |spec - plain| difference within ``SPEC_LOGIT_ABS`` and
+    that of every position within ``SPEC_LOGIT_REL`` of the plain
+    logits' norm.  The tokens are equal, or first different at a
+    near-tie, which is logged and allowed: where the plain logit of the
+    plain pick exceeds that of the spec pick by at most
+    ``SPEC_NEAR_TIE``.  Any other divergence fails.  Returns the
+    differences' summary and the near-ties."""
+    import torch
+    check(len(diffs) > 0, f"{tag}: no position compared with plain")
+    mxs = [mx for mx, _ in diffs.values()]
+    rels = [r for _, r in diffs.values()]
+    out = {"positions_compared": len(diffs), "max_abs_diff": max(mxs),
+           "median_max_abs_diff": float(np.median(mxs)),
+           "max_rel_norm_diff": max(rels), "near_ties": []}
+    check(out["max_abs_diff"] <= SPEC_LOGIT_ABS
+          and out["max_rel_norm_diff"] <= SPEC_LOGIT_REL,
+          f"{tag}: spec logits against plain where the contexts agree: "
+          f"max {out['max_abs_diff']:.4g} (limit {SPEC_LOGIT_ABS:g}), rel "
+          f"norm {out['max_rel_norm_diff']:.3g} (limit {SPEC_LOGIT_REL:g}) "
+          f"over {len(diffs)} positions")
+    for i, (p, g, w) in enumerate(zip(prompts, got, want)):
+        check(len(g) == len(w) == SPEC_NEW_TOKENS,
+              f"{tag}: request {i} made {len(g)} / {len(w)} tokens")
+        if g == w:
+            continue
+        j = next(j for j, (a, b) in enumerate(zip(g, w)) if a != b)
+        row = plain_logits[(p.tobytes(), j)].float()
+        top, idx = torch.topk(row, 2)
+        gap = float(row[w[j]] - row[g[j]])
+        mx, rel = diffs.get((p.tobytes(), j), (float("nan"), float("nan")))
+        msg = (f"{tag}: request {i} ({len(p)} tokens) first differs from "
+               f"plain decode at token {j} ({g[j]} != {w[j]}): plain logits "
+               f"{gap:.4g} apart (limit {SPEC_NEAR_TIE:g}; plain top-2 "
+               f"{top.tolist()}, ids {idx.tolist()}), spec against plain "
+               f"there max {mx:.4g}, rel norm {rel:.3g}")
+        check(gap <= SPEC_NEAR_TIE, msg)
+        log(f"  near-tie: {msg}")
+        out["near_ties"].append({"request": i, "token": j, "gap": gap,
+                                 "top": float(top[0]), "max_abs_diff": mx,
+                                 "rel_norm_diff": rel})
+    return out
+
+
+def spec_timings(dev, target, draft, prompts) -> dict:
+    """On 8 live rows of the easy prompts: ``verify_step_batch`` at
+    (8, draft_k + 1) graphed and eager, the target's and the draft's
+    decode steps graphed (median host ms of ``SPEC_TIMED`` calls, each
+    to its picks on the host)."""
+    easy = [p for p in prompts if spec_k(p)][:8]
+
+    def median_ms(fn):
+        fn()
+        out = []
+        for _ in range(SPEC_TIMED):
+            t = time.perf_counter()
+            fn()
+            out.append((time.perf_counter() - t) * 1e3)
+        return float(np.median(out))
+
+    out = {}
+    rows = [target.prefill_into_pages(p, max_new_tokens=SPEC_NEW_TOKENS)
+            for p in easy]
+    vrows = [(s, [int(s.last_token)] * SPEC_DRAFT_K) for s in rows]
+    width = SPEC_DRAFT_K + 1
+    graph = target._paged_verify
+    out["verify_ms"] = {"graph": median_ms(
+        lambda: target.verify_step_batch(vrows, width=width))}
+    target._paged_verify = _eager(graph)
+    try:
+        out["verify_ms"]["eager"] = median_ms(
+            lambda: target.verify_step_batch(vrows, width=width))
+    finally:
+        target._paged_verify = graph
+    out["target_step_ms"] = median_ms(lambda: target.decode_step_batch(rows))
+    for s in rows:
+        target.pool.release(s)
+    drows = [draft.prefill_into_pages(p, max_new_tokens=SPEC_NEW_TOKENS)
+             for p in easy]
+    out["draft_step_ms"] = median_ms(lambda: draft.decode_step_batch(drows))
+    for s in drows:
+        draft.pool.release(s)
+    return out
+
+
+def spec_rates(dev, target, make_draft, prompts) -> dict:
+    """Decode tokens/s of the plain target and of the structural pair
+    through ``spec_serve`` with no logging (the checked runs clone every
+    decode step's logits and read each verify step's differences on the
+    host): plain, spec, spec, plain, each on fresh pools and a fresh
+    draft engine."""
+    from repro_torch.serving.backend import InProcessBackend
+    from repro_torch.serving.spec_decode import SpeculativeBackend
+    out = {"plain": [], "spec": []}
+    for kind in ("plain", "spec", "spec", "plain"):
+        target.init_paged(num_pages=SPEC_PAGES[0], page_size=64,
+                          decode_batch=8)
+        backend = InProcessBackend(target)
+        if kind == "spec":
+            backend = SpeculativeBackend(backend, make_draft(),
+                                         draft_k=SPEC_DRAFT_K, k_fn=spec_k)
+        out[kind].append(spec_serve(dev, backend, prompts,
+                                    dict)["decode_tokens_per_s"])
+        del backend
+        gc.collect()
+    out["speedup"] = float(np.mean(out["spec"]) / np.mean(out["plain"]))
+    return out
+
+
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
+    return smi.stdout.strip().splitlines()[0]
+
+
+def spec_phase(dev) -> dict:
+    """Phase 11: speculative multiplexed decoding at full width under
+    ``PagedLLMScheduler``, ``SpeculativeBackend(InProcessBackend(target),
+    draft)`` against a plain ``InProcessBackend`` on the same target.
+    Returns the phase's figures."""
+    import torch
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving.backend import InProcessBackend
+    from repro_torch.serving.spec_decode import SpeculativeBackend
+
+    t0 = time.perf_counter()
+    dcfg, tcfg = spec_cfgs()
+    params = [tf.init_params(dcfg, torch.Generator(device=dev).manual_seed(
+        SEED + 200 + i), device=dev, dtype=torch.bfloat16) for i in range(2)]
+    tparams = surgery_params(params[0], params[1])
+    target = spec_engine(dev, tcfg, tparams, SPEC_PAGES[0],
+                         max_len=SPEC_MAX_LEN, lazy=False)
+    draft_len = -(-(SPEC_MAX_LEN + SPEC_DRAFT_K) // 64) * 64
+    prompts = spec_prompts(np.random.default_rng(SEED + 201), dcfg.vocab_size)
+    layers = {"target": tcfg.num_layers, "draft": dcfg.num_layers}
+    out = {"card": card(), "draft_k": SPEC_DRAFT_K,
+           "prompt_lens": [len(p) for p in prompts],
+           "weights_read": {"target": weights_read(target)}}
+
+    # plain: every token one target decode step
+    plain_logits = {}
+    plain = spec_serve(dev, InProcessBackend(target), prompts,
+                       lambda: {"target": StepLog(target, plain_logits)})
+    plain_tokens = {p.tobytes(): t for p, t in zip(prompts, plain["tokens"])}
+    log_ = plain["steps"]["target"]
+    bad = int(log_.nonfinite)
+    check(log_.seen > 0 and bad == 0,
+          f"spec phase plain: {bad} logits not finite over {log_.seen} steps")
+    check(target.pool.pages_in_use == 0,
+          f"spec phase plain: {target.pool.pages_in_use} pages held")
+    out["plain"] = {"decode_batches": plain["decode_batches"],
+                    "wall_s": plain["wall_s"]}
+    log(f"phase 11 plain target: {json.dumps(out['plain'])}")
+
+    for pair, dparams in (("structural", params[0]), ("diverse", params[1])):
+        draft = spec_engine(dev, dcfg, dparams, SPEC_PAGES[1],
+                            max_len=draft_len, lazy=True)
+        target.init_paged(num_pages=SPEC_PAGES[0], page_size=64,
+                          decode_batch=8)
+        spec = SpeculativeBackend(InProcessBackend(target), draft,
+                                  draft_k=SPEC_DRAFT_K, k_fn=spec_k)
+        shadow, spec_logits = {}, {}
+
+        def logs():
+            if pair == "structural":       # one verify call, mid-run
+                shadow["v"] = VerifyShadow(target._paged_verify, 3)
+                target._paged_verify = shadow["v"]
+            return {"target": StepLog(target, spec_logits),
+                    "draft": StepLog(draft),
+                    "verify": VerifyLog(target, plain_logits, plain_tokens)}
+        try:
+            run = spec_serve(dev, spec, prompts, logs)
+        finally:
+            if "v" in shadow:
+                target._paged_verify = shadow["v"].graphed
+        stats = spec.stats()
+        k1 = {name: (lg.steps, lg.k1) for name, lg in run["steps"].items()
+              if name != "verify"}
+        accept = stats["accepted_tokens"] / max(stats["draft_tokens"], 1)
+        row = {"draft_tokens": stats["draft_tokens"],
+               "accepted_tokens": stats["accepted_tokens"],
+               "acceptance": accept,
+               "spec_fallbacks": stats["spec_fallbacks"],
+               "verify_rounds": stats["verify_rounds"],
+               "peak_draft_pages": stats["draft_pool"]["peak_pages_in_use"],
+               "decode_batches": run["decode_batches"],
+               "wall_s": run["wall_s"], "warmup_s": run["warmup_s"],
+               "steps": {name: s for name, (s, _) in k1.items()},
+               "k1_launches": run["launches"]["paged_attention"],
+               "tokens_equal_plain": sum(
+                   g == w for g, w in zip(run["tokens"], plain["tokens"]))}
+        if pair == "structural":
+            row["verify_graph_vs_eager"] = shadow["v"].result
+            row["verify_capture_s"] = target.capture_s.get(
+                f"paged_verify_w{SPEC_DRAFT_K + 1}")
+            row.update(spec_timings(dev, target, draft, prompts))
+            out["weights_read"]["draft"] = weights_read(draft)
+        log(f"phase 11 {pair} pair ({out['card']}): {json.dumps(row)}")
+        diffs = decode_diffs(spec_logits, plain_logits, run["tokens"],
+                             plain["tokens"], prompts)
+        row["verify_positions_compared"] = len(run["steps"]["verify"].diffs)
+        check(row["verify_positions_compared"] > 0,
+              f"spec phase {pair}: no verify position compared with plain")
+        diffs.update(run["steps"]["verify"].diffs)
+        row["against_plain"] = same_stream(
+            f"phase 11 {pair}", prompts, run["tokens"], plain["tokens"],
+            plain_logits, diffs)
+        check(not spec._spec_dead, f"spec phase {pair}: speculation was "
+              f"turned off by a draft-engine error")
+        check(stats["pool"]["pages_in_use"] == 0
+              and stats["draft_pool"]["pages_in_use"] == 0,
+              f"spec phase {pair}: pages held after the run: target "
+              f"{stats['pool']['pages_in_use']}, draft "
+              f"{stats['draft_pool']['pages_in_use']}")
+        for name, (steps, n) in k1.items():
+            check(steps > 0 and n == layers[name] * steps,
+                  f"spec phase {pair}: {n} K1 launches over {steps} {name} "
+                  f"steps of {layers[name]} layers")
+        check(run["launches"]["paged_attention"] == sum(n for _, n in
+                                                        k1.values()),
+              f"spec phase {pair}: K1 launched {run['launches']} beyond "
+              f"the decode steps {k1}: a verify step launched K1")
+        if pair == "structural":
+            check(accept >= SPEC_ACCEPT_MIN,
+                  f"spec phase: structural acceptance {accept:.3f} < "
+                  f"{SPEC_ACCEPT_MIN}")
+            v = row["verify_graph_vs_eager"]
+            check(v is not None and v["bitwise"],
+                  f"spec phase: the verify graph against the eager verify "
+                  f"step: {v}")
+            if dev.type == "cuda":
+                tally = target._paged_verify.replay_launches(torch.zeros(
+                    (8, SPEC_DRAFT_K + 2 + target._max_pages),
+                    dtype=torch.int32, device=dev))
+                check(not tally, f"spec phase: a verify step launches "
+                      f"{tally}")
+        else:
+            check(stats["spec_fallbacks"] >= 1,
+                  "spec phase: the diverse pair never fell back")
+        out[pair] = row
+        del spec, draft
+        gc.collect()
+    out["rates"] = spec_rates(dev, target, lambda: spec_engine(
+        dev, dcfg, params[0], SPEC_PAGES[1], max_len=draft_len, lazy=True),
+        prompts)
+    log(f"phase 11 decode tokens/s, no logging ({out['card']}): "
+        f"{json.dumps(out['rates'])}")
+    del target, tparams, params, plain_logits
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"phase 11, speculative decoding: {out['wall_s']:.1f} s wall")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phase 7: the paper's image mux (CNN zoo, 4-conv probe, K2's meta form)
 # ---------------------------------------------------------------------------
 
@@ -4592,6 +5135,8 @@ def main(argv) -> int:
     mla = mla_phase(dev, on_logits, finite, args.profile)
     # phase 10: gemma2-27b and olmoe-1b-7b served (the zoo's remaining models)
     zoo10 = zoo_phase(dev, on_logits, finite, args.profile)
+    # phase 11: speculative decoding, SpeculativeBackend under the scheduler
+    spec = spec_phase(dev)
     # last: its torch.profiler window leaves the host slower at every later
     # launch, which would show in the served phases' decode rates
     probe["by_path"] = time_probe(dev, probe_srv, probe_tokens)
@@ -4705,18 +5250,14 @@ def main(argv) -> int:
     print(json.dumps({"paper": paper}), flush=True)
     print(json.dumps({"mla_phase": mla}), flush=True)
     print(json.dumps({"zoo_phase": zoo10}), flush=True)
+    print(json.dumps({"spec_phase": spec}), flush=True)
     return finish()
 
 
 def finish() -> int:
     """The card's name and power limit, then the closing line."""
     import torch
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60)
-    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(card(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -5,8 +5,8 @@ Port of ``repro.models.transformer`` for configs whose pattern holds
 ``mixer="attn"`` or ``mixer="mla"`` layers with a dense, MoE or no MLP —
 olmo-1b, codeqwen1.5-7b, minicpm3-4b, gemma2-27b and olmoe-1b-7b among
 them — or ``mixer="mamba"`` layers with no MLP (falcon-mamba-7b).
-Mamba layers with an MLP (jamba), cross-attention, codebook heads,
-sinusoidal positions and ``verify_paged`` are not ported yet and raise
+Mamba layers with an MLP (jamba), cross-attention, codebook heads and
+sinusoidal positions are not ported yet and raise
 ``NotImplementedError``.
 An MLA layer caches its latent (``kv_lora + d_rope`` features a token,
 one "KV head") in bf16 when an int8 pool is asked for, as the JAX
@@ -25,6 +25,8 @@ Entry points:
   * ``prefill``        (a prompt, writing fresh or reset ring / SSM
     caches)
   * ``prefill_paged``  (a prompt, or a shared-prefix tail, into pages)
+  * ``verify_paged``   (S = k + 1 tokens a row at per-row positions,
+    logits for every position: the speculative verify step)
   * ``decode_step``    (one token: ring caches at a shared scalar
     position, or — via ``block_tables`` — the paged pool at per-row
     positions)
@@ -472,6 +474,22 @@ def prefill_paged(params: Params, cfg: ModelConfig, tokens, caches,
                         insert_from=insert_from)
     i = h.shape[1] - 1 if last_index is None else int(last_index)
     return unembed(params, cfg, h[:, i:i + 1]), caches
+
+
+def verify_paged(params: Params, cfg: ModelConfig, tokens, caches,
+                 block_tables, q_offset, *, insert_from=None):
+    """Speculative-decoding verify step: S = k + 1 tokens a row (B, S)
+    at per-row absolute positions ``q_offset`` (B,) through the paged
+    tail-prefill path, in place; returns logits for every position,
+    (B, S, V).  ``insert_from`` (scalar or (B,)) routes writes below it
+    to scratch.  K/V written above a row's finally committed position
+    is masked (kv_pos > q_pos) and overwritten by later inserts before
+    it becomes visible.  An MoE block runs its prefill-mode capacity on
+    the S tokens, as the reference does.  Returns (logits, caches)."""
+    h, caches = forward(params, cfg, tokens, mode="prefill", caches=caches,
+                        block_tables=block_tables, q_offset=q_offset,
+                        insert_from=insert_from)
+    return unembed(params, cfg, h), caches
 
 
 def decode_step(params: Params, cfg: ModelConfig, token, caches, pos, *,

@@ -19,10 +19,11 @@ The executor surface (all device work is ``await``-ed):
     admissible()/fits_ever()/capacity()/healthy   admission introspection
 
 ``InProcessBackend`` wraps one paged ``Engine`` on a single-thread
-executor; ``InProcessMuxBackend`` one mux-zoo model
-(``MuxServer.model_step``) on one.  Not ported yet (``ROADMAP.md``):
-``DisaggregatedBackend``, the remote stub and its wire protocol, lazy
-decode allocation and the prefix digest.
+executor and is the verify surface speculative decoding wraps
+(``spec_decode.SpeculativeBackend``); ``InProcessMuxBackend`` one
+mux-zoo model (``MuxServer.model_step``) on one.  Not ported yet
+(``ROADMAP.md``): ``DisaggregatedBackend``, the remote stub and its
+wire protocol, and the prefix digest.
 """
 from __future__ import annotations
 
@@ -149,6 +150,11 @@ class ModelBackend:
         cap = self.capacity()
         return (-(-(prompt_len + max_new_tokens) // cap.page_size)
                 <= cap.num_pages)
+
+    def set_lazy_decode_alloc(self, enabled: bool) -> None:
+        """Push the scheduler's ``lazy_decode_alloc`` policy down to the
+        paged engine(s).  No-op by default: request-level backends hold
+        no pages to reserve lazily."""
 
     @property
     def healthy(self) -> bool:
@@ -302,6 +308,10 @@ class InProcessBackend(_ExecutorMixin, ModelBackend):
     Token-identical to the scheduler calling the engine directly: the
     same entry points run, serialized on one executor thread."""
 
+    #: executor that serializes with decode: speculative verify steps
+    #: (``spec_decode.SpeculativeBackend``) run there
+    verify_executor = "device"
+
     def __init__(self, engine, name: Optional[str] = None):
         if engine.pool is None:   # not an assert: must survive python -O
             raise ValueError(
@@ -310,6 +320,12 @@ class InProcessBackend(_ExecutorMixin, ModelBackend):
         self.engine = engine
         self.name = name or f"inproc:{engine.cfg.name}"
         self._init_executors(["device"])
+
+    @property
+    def verify_engine(self):
+        """The engine whose paged caches multi-token verify steps run
+        against (the speculative-decoding verify surface)."""
+        return self.engine
 
     def bind_tracer(self, tracer) -> None:
         super().bind_tracer(tracer)
@@ -344,10 +360,7 @@ class InProcessBackend(_ExecutorMixin, ModelBackend):
                                op="probe")
 
     def set_lazy_decode_alloc(self, enabled: bool) -> None:
-        raise NotImplementedError(
-            "lazy decode allocation is not ported yet (ROADMAP.md, "
-            "section 1): the port's Engine reserves prompt + budget pages "
-            "at admission")
+        self.engine.set_lazy_decode_alloc(enabled)
 
     # ---- admission -----------------------------------------------------
     def capacity(self) -> BackendCapacity:

@@ -20,10 +20,12 @@ Differences from the JAX engine:
   ring decode step of ``generate`` and each paged ``decode_step_batch``
   is one replay of a captured step, the plain paged step or the one
   with the fused copy-on-write (the reference's ``paged_decode_fn`` /
-  ``paged_decode_cow_fn``).  A capture or replay that fails raises;
-  nothing runs the step eagerly instead.  On the CPU the same step
-  functions run directly on the same buffers.  Prefill stays eager
-  (its shapes follow each prompt).
+  ``paged_decode_cow_fn``), and each ``verify_step_batch`` one replay
+  of the multi-token verify step (``paged_verify_fn``), captured per
+  width.  A capture or replay that fails raises; nothing runs the step
+  eagerly instead.  On the CPU the same step functions run directly on
+  the same buffers.  Prefill stays eager (its shapes follow each
+  prompt).
 * There is no donation: the pool and the ring / Mamba caches are
   allocated once (the ring caches once per batch size, on first use)
   and updated in place, at the fixed addresses the graphs hold.  A
@@ -38,8 +40,7 @@ Differences from the JAX engine:
   its batch from ``ServeConfig.seed + i`` the same way, where the JAX
   engine draws the whole batch from one key per step.  Greedy decoding
   (temperature 0) is an exact argmax in both.
-* Not ported yet: the host-RAM tier, lazy decode allocation,
-  ``verify_step_batch`` and ``rollback_pages``.
+* Not ported yet: the host-RAM tier.
 """
 from __future__ import annotations
 
@@ -115,6 +116,8 @@ class Engine:
         self._paged_caches = None
         self._paged_decode: Optional[Callable] = None
         self._paged_decode_cow: Optional[Callable] = None
+        self._paged_verify: Optional[Callable] = None
+        self._lazy_decode_alloc = False
         self._max_pages = 0
         self._decode_batch = 0
         self._caches_poisoned = False
@@ -138,6 +141,7 @@ class Engine:
         self._prewarm_cap = 0
         # window/chunked span reclaim (None = a full-span layer exists)
         self._layer_spans: Optional[List[Tuple[str, int]]] = None
+        self._span_reclaim = True
         self.reclaimed_pages = 0
         self.tracer = NULL_TRACER
         self.trace_track = f"engine:{cfg.name}/events"
@@ -260,14 +264,22 @@ class Engine:
     def init_paged(self, *, num_pages: int, page_size: int = 64,
                    decode_batch: int = 8,
                    prefix_sharing: bool = True,
-                   logit_cache: int = 0) -> PagePool:
+                   logit_cache: int = 0,
+                   span_reclaim: bool = True,
+                   lazy_decode_alloc: bool = False) -> PagePool:
         """Allocate the paged KV pool in ``cfg.kv_cache_dtype`` (int8
         pools store quantized pages, dequantized in the kernel).  The
         pool is sized in *pages*, not batch slots.
         ``prefix_sharing=False`` disables the prefix index.
         ``logit_cache`` is the LRU capacity of the cross-request logit
         cache (0 = off).  Decode frees pages that have fallen wholly
-        below every layer's attention span."""
+        below every layer's attention span unless
+        ``span_reclaim=False``.  ``lazy_decode_alloc=True`` seals a
+        prefill with only the prompt's pages (prompt + 1 tokens)
+        instead of the whole prompt + budget span; decode steps then
+        grow the sequence page by page.  The speculative drafter runs
+        its engine this way, so that a rejected draft's pages can be
+        handed back (``rollback_pages``)."""
         self.pool = PagePool(num_pages=num_pages, page_size=page_size,
                              prefix_sharing=prefix_sharing)
         self._max_pages = self.pool.pages_for(self.scfg.max_len)
@@ -283,10 +295,13 @@ class Engine:
         self.logit_cache_misses = 0
         self._prewarmed = collections.OrderedDict()
         self._prewarm_cap = max(1, min(4, int(logit_cache)))
+        self._span_reclaim = span_reclaim
         self._layer_spans = self._banded_spans()
         self.reclaimed_pages = 0
+        self._lazy_decode_alloc = lazy_decode_alloc
         # free the old pool (and the graphs that hold it) before the new
         self._paged_decode = self._paged_decode_cow = None
+        self._paged_verify = None
         self._paged_caches = None
         self._paged_caches = tf.init_caches(
             self.cfg, num_pages=num_pages, page_size=page_size,
@@ -295,6 +310,8 @@ class Engine:
                                             "paged_decode")
         self._paged_decode_cow = self._compiled(self._paged_step(cow=True),
                                                 "paged_decode_cow")
+        self._paged_verify = self._compiled(self._verify_step(),
+                                            "paged_verify")
         return self.pool
 
     def _paged_step(self, cow: bool) -> Callable:
@@ -320,6 +337,45 @@ class Engine:
                                        block_tables=packed[:, 2:2 + m])
             return logits[:, 0]
         return step
+
+    def _verify_step(self) -> Callable:
+        """The speculative verify step over this pool, as one function
+        of one (decode_batch, width + 1 + max_pages) int32 operand: per
+        row the ``width`` fed tokens, the absolute position of the first
+        (``q_offset``) and the block-table row; the width follows from
+        the operand's shape.  Runs ``tf.verify_paged`` (the tail-prefill
+        path at per-row positions) and returns logits for every fed
+        position, (decode_batch, width, V), as the JAX engine's
+        ``paged_verify_fn`` does."""
+        caches, m = self._paged_caches, self._max_pages
+
+        def step(packed):
+            w = packed.shape[1] - 1 - m
+            logits, _ = tf.verify_paged(self.params, self.cfg, packed[:, :w],
+                                        caches, packed[:, w + 1:],
+                                        packed[:, w])
+            return logits
+        return step
+
+    def capture_verify_step(self, width: int) -> float:
+        """Capture the verify step at (decode_batch, ``width``) before
+        traffic, on an operand that touches only the scratch page (every
+        row token 0 at position 0 of a block table of scratch pages).
+        Returns the capture's wall seconds (0.0 on the CPU, which
+        captures nothing)."""
+        if self.pool is None:
+            raise RuntimeError("no paged KV pool: call init_paged() first")
+        step = self._paged_verify
+        if not isinstance(step, CudaGraphed):
+            return 0.0
+        packed = torch.full(
+            (self._decode_batch, width + 1 + self._max_pages), SCRATCH_PAGE,
+            dtype=torch.int32, device=self.device)
+        packed[:, :width + 1] = 0
+        with self._device_lock:
+            secs = self.capture_s[f"paged_verify_w{width}"] = \
+                step.capture(packed)
+        return secs
 
     def capture_decode_steps(self) -> Dict[str, float]:
         """Capture both paged decode steps (plain and copy-on-write) at
@@ -374,7 +430,7 @@ class Engine:
         the minimum across layers no future query can see it; its
         block-table slot points at scratch and the page returns to the
         pool."""
-        if self._layer_spans is None:
+        if self._layer_spans is None or not self._span_reclaim:
             return
         pos = seq.pos                  # next insert/query position
         lo = None
@@ -467,7 +523,7 @@ class Engine:
         first chunk rather than the whole prompt."""
         prompt_np = np.asarray(prompt, np.int32).reshape((-1,))
         p = len(prompt_np)
-        total = self.pool.pages_for(p + max_new_tokens)
+        total = self.pool.pages_for(self._sealed_span(p, max_new_tokens))
         mapped, matched, shared_len = self._shared_prefix(prompt_np, p)
         headroom = (1 if (mapped and matched == p and p % self.pool.page_size)
                     else 0)
@@ -557,7 +613,8 @@ class Engine:
         if matched == p and self._logit_cache_cap > 0:
             row = self._logit_cache_get(self._prompt_key(seq.prompt))
             if row is not None:
-                self._grow_pages(seq, pool.pages_for(p + seq.max_new_tokens))
+                self._grow_pages(seq, pool.pages_for(
+                    self._sealed_span(p, seq.max_new_tokens)))
                 tok = int(self._sample_rows(
                     torch.from_numpy(row)[None], [seq.seed], [p],
                     temps=[seq.temperature])[0])
@@ -568,6 +625,18 @@ class Engine:
                                     track=self.trace_track,
                                     args={"prompt_len": int(p)})
                 self._seal_prefill(seq, tok)
+
+    def _sealed_span(self, p: int, max_new_tokens: int) -> int:
+        """Token span a sealing prefill reserves pages for: the whole
+        prompt + decode budget, or prompt + 1 under lazy decode
+        allocation (decode steps then grow page by page)."""
+        return (p + 1) if self._lazy_decode_alloc else (p + max_new_tokens)
+
+    def set_lazy_decode_alloc(self, enabled: bool) -> None:
+        """Turn lazy decode allocation on or off after ``init_paged``
+        (the scheduler pushes ``PagedLLMConfig.lazy_decode_alloc`` here
+        at startup).  Only sequences sealed from now on are affected."""
+        self._lazy_decode_alloc = bool(enabled)
 
     def _grow_pages(self, seq: PagedSequence, upto: int) -> None:
         """Extend ``seq`` to hold ``upto`` pages (alloc + block-table
@@ -623,7 +692,8 @@ class Engine:
         o = seq.prefill_pos
         length = p - o if chunk_tokens is None else min(chunk_tokens, p - o)
         final = o + length >= p
-        span = (p + seq.max_new_tokens) if final else (o + length)
+        span = (self._sealed_span(p, seq.max_new_tokens) if final
+                else (o + length))
         self._grow_pages(seq, pool.pages_for(span))    # OutOfPages: no-op
         dev = self.device
         bt = torch.as_tensor(seq.block_table[None], device=dev)
@@ -714,6 +784,17 @@ class Engine:
         if len(seqs) > cap:
             raise ValueError(f"{len(seqs)} sequences > decode_batch={cap}")
         ps = self.pool.page_size
+        # lazy decode allocation: a sequence sealed without its whole
+        # decode span grows page by page as it advances (a no-op for one
+        # that reserved it).  OutOfPages raises before any device work
+        # with every page list exact; the starving sequence is tagged so
+        # that the scheduler fails it alone.
+        for seq in seqs:
+            try:
+                self._grow_pages(seq, self.pool.pages_for(seq.pos + 1))
+            except OutOfPages as exc:
+                exc.grow_seq = seq
+                raise
         # copy-on-write: a sequence about to insert into a page other
         # sequences still map gets a private copy as part of this step
         # (sharing must never let one request's decode tokens leak into
@@ -789,6 +870,77 @@ class Engine:
             seq.tokens.append(int(nxt[i]))
             self._reclaim_out_of_span(seq)
         return nxt[:len(seqs)]
+
+    # ---- speculative decoding: verify + draft-page rollback ----------
+    def verify_step_batch(self, rows: Sequence[Tuple[PagedSequence,
+                                                     Sequence[int]]],
+                          *, width: int) -> List[np.ndarray]:
+        """Verify up to ``decode_batch`` rows of drafted tokens in one
+        multi-token step.  Each row feeds ``[seq.last_token, d_1 ..
+        d_k]`` at absolute positions ``seq.pos .. seq.pos + k`` and gets
+        back the greedy pick after every fed token: ``out[i][j]`` is the
+        token the model emits after the row's context plus drafts
+        ``d_1 .. d_j``.  ``width`` fixes the step's shape (width >= k + 1
+        for every row; short rows right-pad).
+
+        Sequence state is not advanced: the caller commits what it
+        accepts (``spec_decode.SpeculativeBackend``).  K/V written above
+        a row's finally committed position is masked by position and
+        overwritten before it becomes visible, so the verifier needs no
+        rollback; inactive rows write the scratch page."""
+        with self._device_lock:
+            return self._verify_step_batch_locked(rows, width)
+
+    def _verify_step_batch_locked(self, rows, width: int) -> List[np.ndarray]:
+        if self.pool is None:
+            raise RuntimeError("no paged KV pool: call init_paged() first")
+        cap = self._decode_batch
+        if len(rows) > cap:
+            raise ValueError(f"{len(rows)} verify rows > "
+                             f"decode_batch={cap}")
+        for seq, drafts in rows:
+            if len(drafts) + 1 > width:
+                raise ValueError(f"{len(drafts)} drafts + 1 exceeds the "
+                                 f"verify width {width}")
+        # one operand (see _verify_step): the fed tokens, q_offset and
+        # the block-table row; inactive rows feed token 0 at position 0
+        # of a block table of scratch pages
+        m = self._max_pages
+        packed = np.full((cap, width + 1 + m), SCRATCH_PAGE, np.int32)
+        packed[:, :width + 1] = 0
+        for i, (seq, drafts) in enumerate(rows):
+            packed[i, 0] = seq.last_token
+            packed[i, 1:1 + len(drafts)] = drafts
+            packed[i, width] = seq.pos
+            packed[i, width + 1:] = seq.block_table
+        try:
+            logits = self._paged_verify(torch.from_numpy(packed).to(
+                self.device))
+            # greedy only: speculating rows run at temperature <= 0
+            picks = torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
+        except Exception:
+            self._caches_poisoned = True
+            raise
+        return [picks[i, :len(drafts) + 1]
+                for i, (seq, drafts) in enumerate(rows)]
+
+    def rollback_pages(self, seq: PagedSequence, span_tokens: int) -> int:
+        """Hand back the pages of ``seq`` past the page covering
+        ``span_tokens`` tokens (refcounted decref; their block-table
+        slots fall back to scratch).  The speculative drafter calls this
+        after a verify round to free what its rejected drafts took; the
+        page list stays exact throughout.  Returns the pages freed."""
+        keep = self.pool.pages_for(span_tokens)
+        freed: List[int] = []
+        while len(seq.pages) > keep:
+            pg = seq.pages.pop()
+            seq.block_table[len(seq.pages)] = SCRATCH_PAGE
+            if pg is not None:
+                seq.prefix_keys = self.pool.disown_prefix(seq.prefix_keys, pg)
+                freed.append(pg)
+        if freed:
+            self.pool.decref(freed)
+        return len(freed)
 
     def generate_paged(self, prompt, *, max_new_tokens: int,
                        seed: Optional[int] = None,

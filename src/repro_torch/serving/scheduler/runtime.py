@@ -473,15 +473,11 @@ class PagedLLMConfig:
     #   the policy to small bites, a tight one widens it to the
     #   ceiling.  Warmup compiles the whole bound ladder, so the tuned
     #   bounds never hit the compiler mid-serve.
-    lazy_decode_alloc: Optional[bool] = None  # the JAX package pushes
-    #   this down to its engines; the port's Engine has no lazy decode
-    #   allocation yet, so anything but None raises here
-
-    def __post_init__(self):
-        if self.lazy_decode_alloc is not None:
-            raise NotImplementedError(
-                "PagedLLMConfig.lazy_decode_alloc: lazy decode allocation "
-                "is not ported yet (ROADMAP.md, section 1); leave it None")
+    lazy_decode_alloc: Optional[bool] = None  # push down to the paged
+    #   engines at construction: True seals prefills with prompt-only
+    #   pages and grows decode page by page (admission stops reserving
+    #   the whole prompt + budget span up front); None leaves each
+    #   engine as built
 
 
 @dataclasses.dataclass
@@ -569,6 +565,9 @@ class PagedLLMScheduler(SchedulerLifecycle):
         self._prefilling: List[List[_Prefilling]] = [[] for _ in range(n)]
         self._inflight_chunks = 0          # chunk tasks currently in flight
         self._dead = [False] * n    # backend died (see _worker)
+        if self.cfg.lazy_decode_alloc is not None:
+            for b in self.backends:
+                b.set_lazy_decode_alloc(self.cfg.lazy_decode_alloc)
         self._init_lifecycle(n, clock, self.backends, tracer=tracer)
 
     def _chunk_tokens(self, backend: ModelBackend) -> Optional[int]:
@@ -870,14 +869,17 @@ class PagedLLMScheduler(SchedulerLifecycle):
                 try:
                     await backend.decode_batch([e.seq for e in active])
                 except Exception as exc:
-                    victim_seq = getattr(exc, "cow_seq", None)
+                    victim_seq = (getattr(exc, "cow_seq", None)
+                                  or getattr(exc, "grow_seq", None))
                     if (isinstance(exc, OutOfPages)
                             and victim_seq is not None
                             and backend.healthy):
                         # copy-on-write found no free page (the
-                        # admission headroom raced).  The check runs
-                        # before any device work, so the engine
-                        # survives: fail only the starving sequence.
+                        # admission headroom raced), or a lazily
+                        # allocated sequence could not grow its next
+                        # decode page.  Both checks run before any
+                        # device work, so the engine survives: fail
+                        # only the starving sequence.
                         for e in active:
                             if e.seq is victim_seq:
                                 backend.release(e.seq)
@@ -1134,6 +1136,11 @@ class PagedLLMScheduler(SchedulerLifecycle):
             "logit_cache_hits": total("logit_cache_hits"),
             "logit_cache_misses": total("logit_cache_misses"),
             "whole_prompt_prefills": total("whole_prompt_prefills"),
+            # speculative decoding (spec_decode.SpeculativeBackend):
+            # zeros on plain backends
+            "draft_tokens": total("draft_tokens"),
+            "accepted_tokens": total("accepted_tokens"),
+            "spec_fallbacks": total("spec_fallbacks"),
             "pools": [s.get("pool") for s in bstats],
             "backends": bstats,
         })

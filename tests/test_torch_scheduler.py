@@ -272,14 +272,9 @@ def test_failed_request_trips_the_tracer():
 
 
 def test_unported_backend_surfaces_raise():
-    eng = _tiny_engine(32, 6)
+    backend = InProcessBackend(_tiny_engine(32, 6))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PagedLLMConfig(lazy_decode_alloc=True)
-    backend = InProcessBackend(eng)
-    for call in (lambda: backend.set_lazy_decode_alloc(True),
-                 backend.prefix_digest):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+        backend.prefix_digest()
 
 
 # ---------------------------------------------------------------------------
