@@ -16,8 +16,9 @@ Phases, each of which must pass:
    latent's wide ``<bf16, 16, 512>``) and its combine kernel, for K4
    those of every
    ``selective_scan_kernel`` instantiation (the served one: bf16 x,
-   n = 16), and for K2 those of both forms of ``mux_score_kernel``;
-   none may spill.
+   n = 16), for K2 those of both forms of ``mux_score_kernel``, and for
+   K3's backward (``flash_attention_bwd.cu``) those of its D, dk / dv
+   and dq kernels in bf16 and fp32; none may spill.
 2. Kernels against their plain PyTorch versions on the card: K1
    ``paged_attention`` over float32 / bf16 / int8 pages, GQA groups
    g in {1, 2, 4, 8}, full / window / chunk / logit-cap / v_dim
@@ -317,7 +318,42 @@ Phases, each of which must pass:
    step ms, decode tokens/s of each run, acceptance, peak draft-pool
    pages, each model's weights-read time, beside the card's name and
    power limit.
-12. Last, since a ``torch.profiler`` window slows the host's later
+12. LM training (the port's ``launch.train`` / ``Trainer`` /
+   ``make_train_step`` / ``lm_loss``).  (a) K3's backward
+   (``csrc/flash_attention_bwd.cu``: dq, dk, dv from q, k, v, the
+   forward's out and row log-sum-exps, dout) against
+   ``flash_attention_bwd_plain`` fed the same tensors, at olmo-1b's
+   train shape (B 2, S = T 4096, 16 heads of 128, bf16), GQA g = 2 with
+   a window of 256 and cap 50, g = 4 with a chunk of 96, MLA's hd 96 /
+   vd 64 at 40 heads, hd 40 / vd 24 off the tiles, and three fp32 cases
+   (g = 2; window and cap; chunk at 96 / 64): ||kernel - plain|| /
+   ||plain|| of each gradient within 1e-2 (bf16) / 1e-4 (fp32), K3's
+   row log-sum-exps against ``flash_attention_lse_plain`` (2e-2 /
+   1e-4), the forward's out bitwise unchanged by writing them, two
+   backward calls bitwise equal.  (b) At olmo-1b's train shape: the
+   backward as a CUDA graph and eager, its bound, its plain version,
+   ``scaled_dot_product_attention(is_causal=True)``'s backward through
+   autograd (timed apart from its forward), and K3's forward with and
+   without the log-sum-exps.  (c) One ``make_train_step`` step and the
+   loss and gradients of three tiny fp32 LMs (the GQA window model, the
+   MoE and the MLA ones of phase 2; the MLA one with its loss chunked
+   by 8) on the card against the CPU on the same params and
+   ``lm_batch`` batch, TF32 off: losses and metrics within 1e-5, every
+   gradient entry within 1e-5 of the global norm; K3's backward
+   launched once a layer, its SIMT forward once (twice under remat).
+   (d) olmo-1b at its published config (1.18 B fp32 params, bf16
+   compute, ``remat="full"``) trained 20 steps through
+   ``launch.train``'s ``build_trainer`` + ``Trainer.run`` on
+   ``lm_batch`` at global batch 2 x 4096 (train_4k's 256 does not fit
+   one card): median step ms (CUDA events), tokens/s, model FLOPs (6 N
+   tokens) as a share of 989 TFLOP/s, ms a batch of data and the
+   (vocab, vocab) table's build, peak memory, the losses, then two steps
+   under ``torch.profiler`` by kernel family; checks: finite losses and
+   gradient norms, step 0 within 1.0 of ln 50,304, the last loss below
+   the first, K3 forward launches = 16 x steps x 2 (the remat
+   recompute), all on the tensor-core variant, K3 backward launches =
+   16 x steps.
+13. Last, since a ``torch.profiler`` window slows the host's later
    launches: the whole probe (weights + select) at B=1, S=64, eager
    against graphed: ms a call, host microseconds a call, and device
    busy ms and launches a probe from ``torch.profiler``, whose rows
@@ -342,7 +378,8 @@ phase 10's scheduler launches by zoo, ``phase10_launches``, and their
 rows at gemma2's shapes, ``g2_shape``;
 K2's entry also has its meta form's launches on phase 7's image path and
 phase 8's served trained muxes, ``meta_launches``, and its times at the
-served shapes, ``meta_form``),
+served shapes, ``meta_form``; K3's backward's entry, ``flash_attention_bwd``,
+has phase 12's olmo-1b launches and its times at that train shape),
 a JSON line of K1's ptxas resources and its times by shape, a JSON
 line of K4's ptxas resources and its times by batch, a JSON
 line of K3's tensor-core variant's ptxas resources and its
@@ -377,7 +414,9 @@ prefills; gemma2's long prompts' prefill ms and launches and its ring
 against paged difference; olmoe's ring path; the wall seconds), a
 ``{"spec_phase": ...}`` line (phase 11: the card, the plain run's and
 each pair's decode tokens/s, counters, acceptance, steps, K1 launches,
-near-ties, the verify graph against eager, the timed steps), the
+near-ties, the verify graph against eager, the timed steps), a
+``{"train_phase": ...}`` line (phase 12: K3's backward checks and
+times, the tiny train steps, olmo-1b's run and its profiled step), the
 card's name and power limit (nvidia-smi), and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the run
 exits non-zero without that last line.  It needs one CUDA card and a
@@ -1835,15 +1874,9 @@ def check_model_against_cpu(dev, cfg=None) -> float:
     through its latent form) on the card, against the same weights on
     the CPU (plain path).  Returns the max logit difference."""
     import torch
-    from repro_torch.configs.base import LayerSpec, ModelConfig
     from repro_torch.kernels import ops
     from repro_torch.models import transformer as tf
-    cfg = cfg or ModelConfig(
-        name="tiny-check", arch_type="dense", num_layers=2, d_model=64,
-        d_ff=128, vocab_size=128, num_heads=4, num_kv_heads=2, head_dim=16,
-        compute_dtype="float32", param_dtype="float32",
-        kv_cache_dtype="float32",
-        pattern=(LayerSpec(), LayerSpec(attn_kind="swa")), window=6)
+    cfg = cfg or tiny_gqa_config()
     params = tf.init_params(cfg, torch.Generator().manual_seed(SEED),
                             device="cpu")
     gparams = _to_device(params, dev)
@@ -2868,7 +2901,7 @@ def check_ring(run, *, scan: bool) -> None:
             "flash_attention_window": run["window_layers"] * run["prefills"],
             "paged_attention": 0, "paged_attention_int8": 0,
             "paged_attention_latent": 0, "paged_attention_window": 0,
-            "mux_score": 0}
+            "mux_score": 0, "flash_attention_bwd": 0}
     check(run["prefills"] > 0 and got == want,
           f"{name}: launches {got} for {run['prefills']} prefills of "
           f"{layers} layers, expected {want}")
@@ -4996,6 +5029,450 @@ def profile_zoo_step(dev, state, median_ms: float, steps: int = 5) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 12: LM training (K3's backward, the train step, olmo-1b trained)
+# ---------------------------------------------------------------------------
+
+# K3's backward against its plain version, fed the same q, k, v, out, lse
+# and dout: (b, s, h, kk, hd, vd, window, chunk, cap, dtype)
+FLASH_BWD_CASES = {
+    "olmo-1b train": (2, 4096, 16, 16, 128, 128, None, None, None, "bf16"),
+    "g=2 window cap": (1, 1000, 8, 4, 128, 128, 256, None, 50.0, "bf16"),
+    "g=4 chunk": (1, 700, 8, 2, 64, 64, None, 96, None, "bf16"),
+    "MLA 96/64": (1, 1024, 40, 40, 96, 64, None, None, None, "bf16"),
+    "hd 40 vd 24 off-tile": (2, 130, 4, 2, 40, 24, 50, None, None, "bf16"),
+    "fp32 g=2": (1, 333, 4, 2, 64, 64, None, None, None, "fp32"),
+    "fp32 window cap": (1, 300, 8, 2, 128, 128, 100, None, 50.0, "fp32"),
+    "fp32 chunk 96/64": (2, 200, 4, 4, 96, 64, None, 40, None, "fp32"),
+}
+# ||kernel - plain|| / ||plain|| of each of dq, dk, dv: bf16 rounds P and dS
+# to bf16 as the products' operands (2^-9 of each, independent over the
+# keys, so the norm moves far less) and the inputs' gradients are written
+# in bf16; fp32 is fp32 arithmetic in another summation order
+BWD_REL = {"bf16": 1e-2, "fp32": 1e-4}
+# |kernel lse - plain lse|: bf16 scores are a bf16 product scaled after it
+# (the plain version scales q in fp32 first), fp32 differs in rounding only
+LSE_TOL = {"bf16": 2e-2, "fp32": 1e-4}
+OLMO_TRAIN = (2, 4096, 16, 16, 128, 128)      # B, S, H, K, hd, vd (bf16)
+
+
+def check_bwd_resources() -> dict:
+    """ptxas's registers and spills of every kernel of K3's backward
+    (``csrc/flash_attention_bwd.cu``: the D pass, the dk / dv and the dq
+    kernels, bf16 and fp32), logged; none may spill."""
+    found = ptxas_entries("flash_attention_bwd", "flash_bwd_")
+    for key, text in found.items():
+        log(f"  flash_attention_bwd {key}: {text}")
+    check(len(found) == 6, f"K3's backward: {len(found)} ptxas entries, "
+          f"want 3 kernels x 2 dtypes: {sorted(found)}")
+    spills = {k: v for k, v in found.items()
+              if "0 bytes spill stores, 0 bytes spill loads" not in v}
+    check(not spills, f"K3's backward spills: {spills}")
+    return found
+
+
+def rel_l2(got, want) -> float:
+    return ((got.float() - want.float()).norm()
+            / want.float().norm().clamp_min(1e-30)).item()
+
+
+def bwd_inputs(gen, dev, case):
+    """q, k, v, out, lse (K3's forward, ``lse=True``) and dout of a case."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    b, s, h, kk, hd, vd, window, chunk, cap, dt = case
+    dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+    q, k, v = flash_inputs(gen, dev, b, s, s, h, kk, hd, vd, dtype)
+    kw = dict(window=window, chunk=chunk, logit_cap=cap)
+    out, lse = flash_attention_cuda(q, k, v, lse=True, **kw)
+    dout = torch.randn(out.shape, generator=gen).to(dtype).to(dev)
+    return (q, k, v, out, lse, dout), kw
+
+
+def check_flash_bwd(dev) -> dict:
+    """Phase 12 (a): K3's backward against ``flash_attention_bwd_plain``
+    on the same q, k, v, out, lse and dout over ``FLASH_BWD_CASES``
+    (olmo-1b's train shape, GQA with a window and cap 50, a chunk, MLA's
+    hd 96 / vd 64 at 40 heads, widths off the k16 steps, fp32); K3's row
+    log-sum-exps against ``flash_attention_lse_plain``, and the forward's
+    out unchanged by asking for them (bitwise); a second backward call
+    bitwise equal to the first (no atomics); each call counted once.
+    Returns the worst errors."""
+    import torch
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_cuda, flash_attention_bwd_plain,
+        flash_attention_cuda, flash_attention_lse_plain)
+    gen = torch.Generator().manual_seed(SEED + 12)
+    worst = {"max_abs_err": 0.0, "rel": {"bf16": 0.0, "fp32": 0.0},
+             "lse": {"bf16": 0.0, "fp32": 0.0}}
+    for name, case in FLASH_BWD_CASES.items():
+        dt = case[-1]
+        (q, k, v, out, lse, dout), kw = bwd_inputs(gen, dev, case)
+        check(torch.equal(out, flash_attention_cuda(q, k, v, **kw)),
+              f"K3 bwd {name}: the forward's out changed with lse=True")
+        lse_err = (lse - flash_attention_lse_plain(q, k, **kw)).abs().max()
+        lse_err = lse_err.item()
+        counts = {"flash_attention_bwd": 0}
+        got = flash_attention_bwd_cuda(q, k, v, out, lse, dout, counts=counts,
+                                       **kw)
+        again = flash_attention_bwd_cuda(q, k, v, out, lse, dout, **kw)
+        torch.cuda.synchronize()
+        check(counts["flash_attention_bwd"] == 1,
+              f"K3 bwd {name}: the wrapper counted {counts}")
+        want = flash_attention_bwd_plain(q, k, v, out, lse, dout, **kw)
+        rels = [rel_l2(g, w) for g, w in zip(got, want)]
+        abs_err = max((g.float() - w).abs().max().item()
+                      for g, w in zip(got, want))
+        log(f"K3 bwd {name:22s} {dt}: rel L2 dq {rels[0]:.3e} dk "
+            f"{rels[1]:.3e} dv {rels[2]:.3e} (tol {BWD_REL[dt]:g}); max abs "
+            f"{abs_err:.3e}; lse max err {lse_err:.3e} (tol {LSE_TOL[dt]:g})")
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"K3 bwd {name}: two calls differ")
+        check(all(g.dtype == q.dtype and g.shape == x.shape
+                  for g, x in zip(got, (q, k, v))),
+              f"K3 bwd {name}: gradient dtypes / shapes")
+        check(max(rels) <= BWD_REL[dt],
+              f"K3 bwd {name}: rel L2 {rels} > {BWD_REL[dt]:g}")
+        check(lse_err <= LSE_TOL[dt],
+              f"K3 bwd {name}: lse err {lse_err:.3e} > {LSE_TOL[dt]:g}")
+        worst["max_abs_err"] = max(worst["max_abs_err"], abs_err)
+        worst["rel"][dt] = max(worst["rel"][dt], *rels)
+        worst["lse"][dt] = max(worst["lse"][dt], lse_err)
+        del q, k, v, out, lse, dout, got, again, want
+        torch.cuda.empty_cache()
+    return worst
+
+
+def flash_bwd_bound_ms(b, s, h, kk, hd, vd, elem) -> tuple:
+    """(bound ms, bound_by) of K3's backward at a causal S == T shape: q,
+    k, v, out, dout and lse read once, dq, dk, dv written once, over HBM
+    bandwidth; 5 products (S, dP, dV, dK, dQ) of 2 x width FLOPs a
+    visible pair — 2 (hd + vd + vd + hd + hd) — over the bf16 rate."""
+    byts = (elem * (2 * s * h * hd + 2 * s * kk * (hd + vd) + 2 * s * h * vd)
+            + 4 * s * h) * b
+    flops = 2 * (3 * hd + 2 * vd) * b * h * (s * (s + 1) // 2)
+    t_bytes = byts / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def time_flash_bwd(dev) -> dict:
+    """Phase 12 (b): at olmo-1b's train shape (B 2, S = T 4096, 16 heads of
+    128, bf16, causal) K3's backward as a CUDA graph (``ms``) and eager,
+    its bound, its plain version, and the library call for the same
+    function: ``scaled_dot_product_attention(is_causal=True)``'s backward
+    through autograd, timed apart from its forward (eager: an autograd
+    backward is not captured); and K3's forward with and without the row
+    log-sum-exps, as CUDA graphs.  Two input copies of 170 MB rotate, so
+    the L2 never holds the next call's operands."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_cuda, flash_attention_bwd_plain,
+        flash_attention_cuda)
+    b, s, h, kk, hd, vd = OLMO_TRAIN
+    gen = torch.Generator().manual_seed(SEED + 13)
+    case = (b, s, h, kk, hd, vd, None, None, None, "bf16")
+    copies = [bwd_inputs(gen, dev, case)[0] for _ in range(2)]
+
+    def bwd(i):
+        return flash_attention_bwd_cuda(*copies[i % 2])
+
+    def fwd(i, lse):
+        return flash_attention_cuda(*copies[i % 2][:3], lse=lse)
+    row = {"B": b, "S": s, "H": h, "hd": hd,
+           "ms": time_cuda_graph(bwd, iters=10, reps=3),
+           "eager_ms": time_cuda(bwd, iters=10),
+           "plain_ms": time_cuda(lambda i: flash_attention_bwd_plain(
+               *copies[i % 2]), iters=2, warmup=1),
+           "fwd_graph_ms": time_cuda_graph(lambda i: fwd(i, False), iters=10,
+                                           reps=3),
+           "fwd_lse_graph_ms": time_cuda_graph(lambda i: fwd(i, True),
+                                               iters=10, reps=3)}
+    lib = []
+    for c in copies:
+        q, k, v = (x.transpose(1, 2).detach().requires_grad_()
+                   for x in c[:3])
+        out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+        lib.append((out, (q, k, v), c[5].transpose(1, 2)))
+
+    def library(i):
+        out, ins, dout = lib[i % 2]
+        return torch.autograd.grad(out, ins, dout, retain_graph=True)
+    row["library_ms"] = time_cuda(library, iters=10)
+    row["bound_ms"], row["bound_by"] = flash_bwd_bound_ms(b, s, h, kk, hd, vd,
+                                                          2)
+    row["sdpa_vs_kernel_rel"] = [rel_l2(a.transpose(1, 2), w) for a, w in
+                                 zip(library(0), bwd(0))]
+    log(f"K3 bwd at B={b} S=T={s} H={h} hd={hd} bf16: graph {row['ms']:.4f} "
+        f"ms, eager {row['eager_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+        f"({row['bound_by']}), plain {row['plain_ms']:.2f} ms, sdpa backward "
+        f"{row['library_ms']:.4f} ms (rel L2 to the kernel "
+        f"{row['sdpa_vs_kernel_rel']}); K3 forward graph "
+        f"{row['fwd_graph_ms']:.4f} ms, with lse {row['fwd_lse_graph_ms']:.4f}"
+        f" ms")
+    del copies, lib
+    torch.cuda.empty_cache()
+    return row
+
+
+TRAIN_LOSS_RTOL = 1e-5     # tiny fp32 LM, card vs CPU: loss and metrics
+TRAIN_GRAD_TOL = 1e-5      # its gradients, per entry, of their global norm
+TRAIN_STEPS = 20           # olmo-1b's full-width run
+TRAIN_BATCH = 2            # train_4k's global batch of 256 cut to one card
+TRAIN_SEQ = 4096           # train_4k's sequence length
+
+
+def tiny_gqa_config():
+    """The tiny fp32 model of :func:`check_model_against_cpu`: GQA g = 2,
+    a full and a window-6 layer."""
+    from repro_torch.configs.base import LayerSpec, ModelConfig
+    return ModelConfig(
+        name="tiny-check", arch_type="dense", num_layers=2, d_model=64,
+        d_ff=128, vocab_size=128, num_heads=4, num_kv_heads=2, head_dim=16,
+        compute_dtype="float32", param_dtype="float32",
+        kv_cache_dtype="float32",
+        pattern=(LayerSpec(), LayerSpec(attn_kind="swa")), window=6)
+
+
+def check_train_step_against_cpu(dev, cfg) -> dict:
+    """Phase 12 (c): a tiny fp32 LM's loss and gradients
+    (``steps.make_loss_and_grads``) and one ``make_train_step`` step on
+    the card against the same params and ``lm_batch`` batch on the CPU,
+    TF32 off (matmuls and cuDNN) for the check: loss, ce, aux and the
+    step's metrics to ``TRAIN_LOSS_RTOL``, every gradient entry to
+    ``TRAIN_GRAD_TOL`` of the global norm.  On the card the whole-prompt
+    attention runs K3's SIMT variant forward and its fp32 backward
+    kernel: one backward launch a layer, one forward a layer (two under
+    ``remat``)."""
+    import torch
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import adamw
+    cpu = torch.device("cpu")
+    params = tf.init_params(cfg, torch.Generator().manual_seed(SEED),
+                            device=cpu)
+    batch = lm_batch(torch.Generator().manual_seed(SEED + 1), batch=2,
+                     seq_len=24, vocab_size=cfg.vocab_size)
+    opt_cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    runs = []
+    try:
+        for d in (cpu, dev):
+            p, b = _to_device(params, d), _to_device(batch, d)
+            ops.reset_launches()
+            loss, met, grads = steps.make_loss_and_grads(cfg)(p, b)
+            launched = dict(ops.launches)
+            _, _, m = steps.make_train_step(cfg, opt_cfg)(
+                p, adamw.init(opt_cfg, p), b)
+            runs.append(({"loss": loss, **met}, _by_path(grads), m,
+                         launched))
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    (lc, gc_, mc, _), (lg, gg, mg, launched) = runs
+    worst = {"loss_rel": 0.0, "grad_of_norm": 0.0}
+    for want, got in ((lc, lg), (mc, mg)):
+        for k in want:
+            w, g = float(want[k]), float(got[k])
+            rel = abs(g - w) / max(abs(w), 1e-7)
+            worst["loss_rel"] = max(worst["loss_rel"], rel)
+            check(rel <= TRAIN_LOSS_RTOL or abs(g - w) <= 1e-7,
+                  f"{cfg.name} train step {k}: card {g!r} vs CPU {w!r}")
+    norm = float(np.sqrt(sum(np.sum(np.square(v.astype(np.float64)))
+                             for v in gc_.values())))
+    for k, w in gc_.items():
+        err = float(np.abs(gg[k] - w).max()) / norm
+        worst["grad_of_norm"] = max(worst["grad_of_norm"], err)
+        check(err <= TRAIN_GRAD_TOL, f"{cfg.name} gradient {k}: max diff "
+              f"{err:.3e} of the global norm > {TRAIN_GRAD_TOL:g}")
+    layers = cfg.num_layers
+    remat = cfg.remat in ("full", "full_inner")
+    check(launched["flash_attention_bwd"] == layers
+          and launched["flash_attention"] == layers * (1 + remat)
+          == launched["flash_attention_simt"],
+          f"{cfg.name} loss and gradients on the card launched {launched}, "
+          f"want {layers} K3 backward and {layers * (1 + remat)} SIMT "
+          f"forward launches")
+    log(f"{cfg.name} train step, card vs CPU: loss {float(lg['loss']):.6f} "
+        f"(rel {worst['loss_rel']:.2e}), gradients within "
+        f"{worst['grad_of_norm']:.2e} of their norm {norm:.4f}; launches "
+        f"{ {k: v for k, v in launched.items() if v} }")
+    return {**worst, "launches": {k: v for k, v in launched.items() if v}}
+
+
+def train_phase(dev) -> dict:
+    """Phase 12 (d): olmo-1b at full width (16 layers, d_model 2048, vocab
+    50,304, fp32 params, bf16 compute, ``remat="full"``) trained
+    ``TRAIN_STEPS`` steps through ``repro_torch.launch.train``'s
+    ``build_trainer`` and ``Trainer.run`` at global batch 2 x 4096 tokens
+    (``--batch``: train_4k's 256 does not fit one card).  Each step's
+    device time from CUDA events around the train step and each batch's
+    ``lm_batch`` time (synchronised) are recorded by wrappers; the
+    (vocab, vocab) table's build is timed apart.  Checks: every loss and
+    gradient norm finite, step 0's loss within 1.0 of ln 50,304, the
+    last loss below the first, K3 forward launches = 16 x steps x 2
+    (the remat recompute), all on the tensor-core variant, K3 backward
+    launches = 16 x steps."""
+    import math
+    import torch
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    gc.collect()
+    torch.cuda.empty_cache()
+    args = train.parse_args(["--arch", "olmo-1b", "--steps",
+                             str(TRAIN_STEPS), "--batch", str(TRAIN_BATCH),
+                             "--seq", str(TRAIN_SEQ), "--log-every", "1"])
+    trainer = train.build_trainer(args)
+    cfg = trainer.cfg
+    t = time.perf_counter()
+    synthetic.lm_table(cfg.vocab_size, 42, trainer.device)
+    torch.cuda.synchronize()
+    table_s = time.perf_counter() - t
+    data_ms, events = [], []
+    data_iter, train_step = trainer.data_iter, trainer.train_step
+
+    def timed_data(seed):
+        it = data_iter(seed)
+        while True:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            batch = next(it)
+            torch.cuda.synchronize()
+            data_ms.append((time.perf_counter() - t0) * 1e3)
+            yield batch
+
+    def timed_step(*a):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = train_step(*a)
+        ev[1].record()
+        events.append(ev)
+        return out
+    trainer.data_iter, trainer.train_step = timed_data, timed_step
+    ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    result = trainer.run(verbose=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launched = dict(ops.launches)
+    step_ms = [a.elapsed_time(b) for a, b in events]
+    steady = sorted(step_ms[2:])
+    med = steady[len(steady) // 2]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    n_params = sum(x.numel() for x in _leaves(result["params"]))
+    losses = [h["loss"] for h in result["history"]]
+    gnorms = [h["grad_norm"] for h in result["history"]]
+    out = {"arch": cfg.name, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "steps": TRAIN_STEPS, "params": n_params, "wall_s": wall,
+           "table_build_s": table_s, "median_step_ms": med,
+           "step_ms": step_ms, "median_data_ms": sorted(data_ms)[
+               len(data_ms) // 2], "data_ms": data_ms,
+           "tokens_per_s": tokens / (med / 1e3),
+           "model_flops_share": 6 * n_params * tokens / (med / 1e3)
+           / BF16_FLOPS,
+           "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "losses": losses, "grad_norms": gnorms,
+           "launches": {k: v for k, v in launched.items() if v}}
+    log(f"phase 12, olmo-1b trained at B={TRAIN_BATCH} x S={TRAIN_SEQ}: "
+        f"median step {med:.2f} ms ({out['tokens_per_s']:.0f} tokens/s, "
+        f"model FLOPs {out['model_flops_share']:.3f} of 989 TFLOP/s), data "
+        f"{out['median_data_ms']:.1f} ms a batch (table {table_s:.2f} s), "
+        f"peak memory {out['max_memory_allocated_gb']:.2f} GB; losses "
+        f"{[round(x, 4) for x in losses]}; launches {out['launches']}")
+    check(all(math.isfinite(x) for x in losses + gnorms),
+          f"olmo-1b training: a loss or gradient norm is not finite")
+    ln_v = math.log(cfg.vocab_size)
+    check(abs(losses[0] - ln_v) <= 1.0,
+          f"olmo-1b step 0 loss {losses[0]:.4f}, ln V = {ln_v:.4f}")
+    check(losses[-1] < losses[0], f"olmo-1b loss did not fall: {losses}")
+    layers = cfg.num_layers
+    check(launched["flash_attention"] == layers * TRAIN_STEPS * 2
+          == launched["flash_attention_wgmma"],
+          f"olmo-1b training: {launched['flash_attention']} K3 forward "
+          f"launches ({launched['flash_attention_wgmma']} wgmma), want "
+          f"{layers} layers x {TRAIN_STEPS} steps x 2 (remat)")
+    check(launched["flash_attention_bwd"] == layers * TRAIN_STEPS,
+          f"olmo-1b training: {launched['flash_attention_bwd']} K3 backward "
+          f"launches, want {layers} x {TRAIN_STEPS}")
+    out["step_profile"] = profile_train_step(
+        trainer, result["params"], result["opt_state"], med)
+    del result, trainer
+    synthetic.lm_table.cache_clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+# kernel families of a train step's profile, by name
+TRAIN_FAMILIES = (("K3 backward", ("flash_bwd_",)),
+                  ("K3 forward", ("flash_attention_sm90",)),
+                  ("GEMMs", ("gemm", "xmma", "nvjet", "cutlass")),
+                  ("AdamW foreach", ("multi_tensor_apply",)))
+
+
+def profile_train_step(trainer, params, opt_state, median_ms: float,
+                       steps: int = 2) -> dict:
+    """Where an olmo-1b train step's time goes: ``steps`` steps from the
+    trained state on one batch under ``torch.profiler``, device busy ms
+    a step by kernel family (``TRAIN_FAMILIES``, the rest as "other")
+    and launches, against the run's median step: the idle share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    batch = next(trainer.data_iter(trainer.tcfg.seed + 1))
+    params, opt_state, _ = trainer.train_step(params, opt_state, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            params, opt_state, _ = trainer.train_step(params, opt_state,
+                                                      batch)
+        torch.cuda.synchronize()
+    rows = _device_rows(prof)
+    fam = {name: 0.0 for name, _ in TRAIN_FAMILIES}
+    fam["other"] = 0.0
+    for ms, _, key in rows:
+        hit = next((name for name, keys in TRAIN_FAMILIES
+                    if any(k in key.lower() for k in keys)), "other")
+        fam[hit] += ms / steps
+    busy = sum(r[0] for r in rows) / steps
+    out = {"device_busy_ms": busy,
+           "launches": sum(r[1] for r in rows) / steps,
+           "median_step_ms": median_ms, "idle_share": 1.0 - busy / median_ms,
+           "by_family_ms": fam,
+           "top": [[round(ms / steps, 3), c // steps, k]
+                   for ms, c, k in rows[:12]]}
+    log(f"olmo-1b train step profile: device busy {busy:.2f} ms, "
+        f"{out['launches']:g} launches a step, median step {median_ms:.2f} "
+        f"ms, idle {out['idle_share']:.3f}; by family "
+        f"{ {k: round(v, 2) for k, v in fam.items()} }; top {out['top']}")
+    return out
+
+
+def train_phases(dev) -> dict:
+    """Phase 12: K3's backward checked and timed, the tiny LMs' train
+    steps against the CPU, then olmo-1b trained at full width."""
+    t0 = time.perf_counter()
+    out = {"bwd_check": check_flash_bwd(dev),
+           "bwd_time": time_flash_bwd(dev),
+           # the MLA model takes minicpm3-4b's chunked loss, at chunks of 8
+           "tiny_steps": {c.name: check_train_step_against_cpu(dev, c)
+                          for c in (tiny_gqa_config(), tiny_moe_config(),
+                                    tiny_mla_config().with_(logits_chunk=8))},
+           "olmo_1b": train_phase(dev)}
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"phase 12, LM training: {out['wall_s']:.1f} s wall")
+    return out
+
+
 def main(argv) -> int:
     import argparse
     import torch
@@ -5037,6 +5514,7 @@ def main(argv) -> int:
     k1_res = check_paged_resources()
     k4_res = check_scan_resources()
     k2_res = check_mux_resources()
+    bwd_res = check_bwd_resources()
 
     k1_err = check_paged_attention(dev)
     k1 = time_paged_attention(dev)
@@ -5137,6 +5615,8 @@ def main(argv) -> int:
     zoo10 = zoo_phase(dev, on_logits, finite, args.profile)
     # phase 11: speculative decoding, SpeculativeBackend under the scheduler
     spec = spec_phase(dev)
+    # phase 12: LM training (K3's backward, the train step, olmo-1b trained)
+    training = train_phases(dev)
     # last: its torch.profiler window leaves the host slower at every later
     # launch, which would show in the served phases' decode rates
     probe["by_path"] = time_probe(dev, probe_srv, probe_tokens)
@@ -5147,6 +5627,7 @@ def main(argv) -> int:
         dev, paper_state, paper["training"]["zoo_cnt"]["median_step_ms"])
 
     launches = run["launches"]
+    bwd = training["bwd_time"]
     mla_launches = mla["scheduler_launches"]
     zoo_launches = {k: zoo10[k]["scheduler_launches"] for k in ("A", "B")}
     meta_form = image["meta_form"] + paper["served"]["meta_form"]
@@ -5190,6 +5671,18 @@ def main(argv) -> int:
          "phase10_launches": {z: {k: zl[k] for k in K3_COUNTS}
                               for z, zl in zoo_launches.items()},
          "g2_shape": k3_g2},
+        {"name": "flash_attention_bwd", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:157",
+         "gradient_of": "flash_attention",
+         "launches": training["olmo_1b"]["launches"]["flash_attention_bwd"],
+         "max_abs_err": training["bwd_check"]["max_abs_err"],
+         "rel_l2": training["bwd_check"]["rel"],
+         "ms": bwd["ms"], "eager_ms": bwd["eager_ms"],
+         "plain_ms": bwd["plain_ms"], "bound_ms": bwd["bound_ms"],
+         "bound_by": bwd["bound_by"], "library_ms": bwd["library_ms"],
+         "fwd_ms": bwd["fwd_graph_ms"], "fwd_lse_ms": bwd["fwd_lse_graph_ms"],
+         "ptxas": bwd_res},
         {"name": "selective_scan", "route": "cuda",
          "source": "src/repro_torch/csrc/selective_scan.cu",
          "replaces": "src/repro/kernels/selective_scan.py:65",
@@ -5213,7 +5706,12 @@ def main(argv) -> int:
     # shape (graph_ms: the same as a CUDA graph, as the probe runs it);
     # its meta form's launches on phase 7's image path (serve, scheduler)
     # and phase 8's trained muxes (paper), and its times at the served
-    # shapes, are meta_launches / meta_form
+    # shapes, are meta_launches / meta_form; K3's backward (its gradient,
+    # replacing no TPU kernel of its own): launches in phase 12's olmo-1b
+    # run, ms its CUDA-graph time at olmo-1b's train shape (eager_ms
+    # beside it), library_ms scaled_dot_product_attention's backward
+    # through autograd, fwd_ms / fwd_lse_ms K3's forward graphed without
+    # and with the row log-sum-exps
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"paged_attention_ptxas": k1_res,
                       "paged_attention_by_shape": k1["shapes"]}), flush=True)
@@ -5251,6 +5749,7 @@ def main(argv) -> int:
     print(json.dumps({"mla_phase": mla}), flush=True)
     print(json.dumps({"zoo_phase": zoo10}), flush=True)
     print(json.dumps({"spec_phase": spec}), flush=True)
+    print(json.dumps({"train_phase": training}), flush=True)
     return finish()
 
 

@@ -63,6 +63,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
     const float* __restrict__ k,     // (B, T, K, hd)
     const float* __restrict__ v,     // (B, T, K, vd)
     float* __restrict__ out,         // (B, S, H, vd)
+    float* __restrict__ lse,         // (B, H, S) or null
     int seq_len, int kv_len, int num_kv_heads, int g, int hd, int vd,
     int block_q, float scale, float logit_cap, int causal, int window,
     int chunk) {
@@ -222,6 +223,11 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
   if (!row_ok) return;
   const float inv = 1.f / fmaxf(l_run, 1e-30f);
   const int head = kh * g + r / block_q;
+  // the row's log-sum-exp for the backward (K3's gradient); every lane
+  // of the row holds the same m_run and l_run
+  if (lse != nullptr && lane4 == 0)
+    lse[(static_cast<int64_t>(b) * num_heads + head) * seq_len + q_pos] =
+        m_run + logf(l_run);
   float* o_row = out + ((static_cast<int64_t>(b) * seq_len + q_pos)
                         * num_heads + head) * vd;
 #pragma unroll
@@ -236,8 +242,9 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
 
 template <int kMaxQuads>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int batch, int seq_len, int kv_len, int num_kv_heads,
-                   int g, int hd, int vd, int block_q, float scale,
+                   void* lse, int batch, int seq_len, int kv_len,
+                   int num_kv_heads, int g, int hd, int vd, int block_q,
+                   float scale,
                    float logit_cap, int causal, int window, int chunk,
                    cudaStream_t stream) {
   const int hd4 = (hd + 3) & ~3;
@@ -256,30 +263,32 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   const dim3 grid((seq_len + block_q - 1) / block_q, num_kv_heads, batch);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), seq_len,
-      kv_len, num_kv_heads, g, hd, vd, block_q, scale, logit_cap, causal,
-      window, chunk);
+      static_cast<const float*>(v), static_cast<float*>(out),
+      static_cast<float*>(lse), seq_len, kv_len, num_kv_heads, g, hd, vd,
+      block_q, scale, logit_cap, causal, window, chunk);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // fp32 q, k, v and out; g * block_q <= 64, hd <= 256, vd <= 256 (the
-// wrapper's plan checks it).  logit_cap <= 0, window <= 0 and chunk <= 0
-// mean "off".  Returns the cudaError_t of the launch (0 = success).
+// wrapper's plan checks it).  lse, where not null, receives each row's
+// log-sum-exp of its (scaled, capped) visible scores, (B, H, S) fp32.
+// logit_cap <= 0, window <= 0 and chunk <= 0 mean "off".  Returns the
+// cudaError_t of the launch (0 = success).
 extern "C" int flash_attention_launch(
-    const void* q, const void* k, const void* v, void* out, int batch,
-    int seq_len, int kv_len, int num_kv_heads, int g, int hd, int vd,
-    int block_q, float scale, float logit_cap, int causal, int window,
+    const void* q, const void* k, const void* v, void* out, void* lse,
+    int batch, int seq_len, int kv_len, int num_kv_heads, int g, int hd,
+    int vd, int block_q, float scale, float logit_cap, int causal, int window,
     int chunk, void* stream) {
   if (g * block_q > kRows || hd > 256 || vd > 256 || block_q < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto st = static_cast<cudaStream_t>(stream);
   if (vd <= 128)
     return static_cast<int>(launch<8>(
-        q, k, v, out, batch, seq_len, kv_len, num_kv_heads, g, hd, vd,
+        q, k, v, out, lse, batch, seq_len, kv_len, num_kv_heads, g, hd, vd,
         block_q, scale, logit_cap, causal, window, chunk, st));
   return static_cast<int>(launch<16>(
-      q, k, v, out, batch, seq_len, kv_len, num_kv_heads, g, hd, vd, block_q,
-      scale, logit_cap, causal, window, chunk, st));
+      q, k, v, out, lse, batch, seq_len, kv_len, num_kv_heads, g, hd, vd,
+      block_q, scale, logit_cap, causal, window, chunk, st));
 }

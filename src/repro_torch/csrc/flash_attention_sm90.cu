@@ -376,6 +376,7 @@ flash_attention_sm90_kernel(
     const __grid_constant__ CUtensorMap k_map,
     const __grid_constant__ CUtensorMap v_map,
     __nv_bfloat16* __restrict__ out,             // (B, S, H, vd)
+    float* __restrict__ lse,                     // (B, H, S) or null
     int seq_len, int kv_len, int num_kv_heads, int g, int vd, int block_q,
     int longest_first, float scale, float logit_cap, int causal, int window,
     int chunk) {
@@ -555,6 +556,11 @@ flash_attention_sm90_kernel(
     if (!ok[r]) continue;
     const int rr = r_base + 8 * r;
     const int head = kh * g + rr % g;
+    // the row's log-sum-exp for the backward (K3's gradient), back from
+    // the log2 domain; the four lanes of a row hold the same m and l
+    if (lse != nullptr && key_lane == 0)
+      lse[(static_cast<int64_t>(b) * num_heads + head) * seq_len + pos[r]] =
+          (m[r] + log2f(l[r])) * 0.6931471805599453f;
     __nv_bfloat16* o_row =
         out + ((static_cast<int64_t>(b) * seq_len + pos[r]) * num_heads + head)
               * vd;
@@ -625,8 +631,9 @@ size_t smem_bytes(int d) {
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* out, int batch,
-           int seq_len, int kv_len, int num_kv_heads, int g, int hd, int vd,
+int launch(const void* q, const void* k, const void* v, void* out, void* lse,
+           int batch, int seq_len, int kv_len, int num_kv_heads, int g,
+           int hd, int vd,
            int block_q, int longest_first, float scale, float logit_cap,
            int causal, int window, int chunk, cudaStream_t stream) {
   const EncodeTiled encode = encode_tiled();
@@ -660,9 +667,9 @@ int launch(const void* q, const void* k, const void* v, void* out, int batch,
   }
   const dim3 grid(num_kv_heads * batch, (seq_len + block_q - 1) / block_q);
   kernel<<<grid, kThreads, smem, stream>>>(
-      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(out), seq_len, kv_len,
-      num_kv_heads, g, vd, block_q, longest_first, scale, logit_cap, causal,
-      window, chunk);
+      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(out),
+      static_cast<float*>(lse), seq_len, kv_len, num_kv_heads, g, vd, block_q,
+      longest_first, scale, logit_cap, causal, window, chunk);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -672,13 +679,15 @@ int launch(const void* q, const void* k, const void* v, void* out, int batch,
 // head width D) in {64, 128, 256} with hd, vd <= width, hd and vd
 // multiples of 8 (TMA strides); g * block_q <= 64 (the wrapper's plan
 // checks all of it).  longest_first != 0 runs the q tiles from the last.
-// logit_cap <= 0, window <= 0 and chunk <= 0 mean "off".  Returns the
-// cudaError_t of the launch (0 = success), or 1000 + the CUresult of a
-// tensor-map encode the CUDA driver refused.
+// lse, where not null, receives each row's log-sum-exp of its (scaled,
+// capped) visible scores, (B, H, S) fp32.  logit_cap <= 0, window <= 0
+// and chunk <= 0 mean "off".  Returns the cudaError_t of the launch (0 =
+// success), or 1000 + the CUresult of a tensor-map encode the CUDA driver
+// refused.
 extern "C" int flash_attention_sm90_launch(
-    const void* q, const void* k, const void* v, void* out, int batch,
-    int seq_len, int kv_len, int num_kv_heads, int g, int hd, int vd,
-    int width, int block_q, int longest_first, float scale, float logit_cap,
+    const void* q, const void* k, const void* v, void* out, void* lse,
+    int batch, int seq_len, int kv_len, int num_kv_heads, int g, int hd,
+    int vd, int width, int block_q, int longest_first, float scale, float logit_cap,
     int causal, int window, int chunk, void* stream) {
   if (g * block_q > kRows || block_q < 1 || hd > width || vd > width
       || hd % 8 != 0 || vd % 8 != 0)
@@ -686,9 +695,9 @@ extern "C" int flash_attention_sm90_launch(
   const auto st = static_cast<cudaStream_t>(stream);
 #define FA_LAUNCH(D)                                                        \
   if (width == D)                                                           \
-    return launch<D>(q, k, v, out, batch, seq_len, kv_len, num_kv_heads, g, \
-                     hd, vd, block_q, longest_first, scale, logit_cap,       \
-                     causal, window, chunk, st)
+    return launch<D>(q, k, v, out, lse, batch, seq_len, kv_len,            \
+                     num_kv_heads, g, hd, vd, block_q, longest_first, scale, \
+                     logit_cap, causal, window, chunk, st)
   FA_LAUNCH(64);
   FA_LAUNCH(128);
   FA_LAUNCH(256);

@@ -1,7 +1,8 @@
-"""Procedural image data with controllable hardness.
+"""Procedural image data with controllable hardness, and token LM
+streams.
 
-Port of the image half of ``repro.data.synthetic`` (the offline stand-in
-for ImageNet): each sample composites a class template with nuisances
+Port of ``repro.data.synthetic``.  Images (the offline stand-in for
+ImageNet): each sample composites a class template with nuisances
 whose strength is its hardness h ~ U[0, 1]:
   * additive noise (grows with h);
   * blending with a distractor class template (grows with h);
@@ -14,12 +15,19 @@ the nuisances, which gives the paper's expertise spectrum (Fig. 1).
 Draws come from an explicit ``torch.Generator`` on the data's device,
 so a dataset is made where it is used (on the card for training there).
 They are other numbers than ``jax.random``'s from the same seed; the
-arithmetic after the draws (``_composite``) and the templates' bicubic
-upsampling are the reference's.
+arithmetic after the draws (``_composite``, ``lm_scan``) and the
+templates' bicubic upsampling are the reference's.
+
+Token streams (``lm_batch``): an order-2 structured stream whose
+transition table, (vocab, vocab), depends only on ``table_seed``.  At a
+50,304-token vocabulary the table is 10.1 GB in int32, so it is drawn
+once per (vocab, table_seed, device) and kept (``lm_table``), where the
+reference redraws it every call.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+import functools
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -122,3 +130,71 @@ def image_dataset(generator: torch.Generator, templates: torch.Tensor, *,
     generator on the templates' device."""
     return [sample_images(generator, templates, batch=batch)
             for _ in range(num_samples // batch)]
+
+
+# ---------------------------------------------------------------------------
+# Token LM streams
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=2)
+def lm_table(vocab_size: int, table_seed: int,
+             device: torch.device) -> torch.Tensor:
+    """The (vocab, vocab) int32 transition table of ``table_seed``, drawn
+    on ``device`` once and kept (``lm_table.cache_clear()`` frees it)."""
+    gen = torch.Generator(device=device).manual_seed(table_seed)
+    return torch.randint(0, vocab_size, (vocab_size, vocab_size),
+                         generator=gen, dtype=torch.int32, device=device)
+
+
+def lm_draws(generator: torch.Generator, *, batch: int, seq_len: int,
+             vocab_size: int, device: torch.device
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """A batch's random draws, in the reference's order: the first two
+    tokens (B, 2), the uniform noise (B, S) and the random tokens
+    (B, S), on ``device`` from ``generator`` (which lives there)."""
+    def randint(shape):
+        return torch.randint(0, vocab_size, shape, generator=generator,
+                             dtype=torch.int32, device=device)
+    t0 = randint((batch, 2))
+    noise = torch.rand((batch, seq_len), generator=generator, device=device)
+    return t0, noise, randint((batch, seq_len))
+
+
+def lm_scan(table: torch.Tensor, t0: torch.Tensor, noise: torch.Tensor,
+            rand_tok: torch.Tensor, structure: float = 0.8) -> Batch:
+    """The stream from its draws: token i is ``table[token i-2, token
+    i-1]`` where ``noise[:, i] < structure``, else ``rand_tok[:, i]``
+    (the reference's scan, one step a position); labels are the tokens
+    shifted left by one, wrapping.  {"tokens", "labels"} (B, S) int32."""
+    b, s = noise.shape
+    vocab = table.shape[1]
+    flat = table.reshape(-1)
+    # int64 from here (the table's flat index outgrows int32 at a large
+    # vocabulary): four launches a position
+    toks = torch.empty((b, s), dtype=torch.int64, device=noise.device)
+    prev2, prev1 = t0[:, 0].long(), t0[:, 1].long()
+    keep, rand_tok = noise < structure, rand_tok.long()
+    for i in range(s):
+        tok = torch.where(keep[:, i],
+                          flat[torch.add(prev1, prev2, alpha=vocab)],
+                          rand_tok[:, i])
+        toks[:, i] = tok
+        prev2, prev1 = prev1, tok
+    toks = toks.to(torch.int32)
+    return {"tokens": toks, "labels": torch.roll(toks, -1, dims=1)}
+
+
+def lm_batch(generator: torch.Generator, *, batch: int, seq_len: int,
+             vocab_size: int, structure: float = 0.8,
+             table_seed: int = 42) -> Batch:
+    """Order-2 structured token stream: the next token is a fixed
+    function of the previous two with probability ``structure``, else
+    uniform — a learnable, non-trivial LM task.  Drawn on the
+    generator's device; the table depends only on ``table_seed`` (not on
+    ``generator``), so successive batches share the structure a model can
+    learn."""
+    dev = torch.device(generator.device)
+    table = lm_table(vocab_size, table_seed, dev)
+    return lm_scan(table, *lm_draws(generator, batch=batch, seq_len=seq_len,
+                                    vocab_size=vocab_size, device=dev),
+                   structure=structure)

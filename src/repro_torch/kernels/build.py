@@ -27,7 +27,7 @@ from typing import Dict, Tuple
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("paged_attention", "mux_score", "flash_attention",
-           "flash_attention_sm90", "selective_scan")
+           "flash_attention_sm90", "flash_attention_bwd", "selective_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -14,6 +14,14 @@ same function in plain PyTorch.  Callers go through
 the tensors' device (and runs the model's own ``blocked_attention`` on
 the CPU, as the JAX dispatcher does off the TPU).
 
+K3's gradient (the TPU kernel has none; the JAX package trains through
+plain attention and autodiff): either variant can also write each row's
+log-sum-exp (``lse=True``), from which ``csrc/flash_attention_bwd.cu``
+(:func:`flash_attention_bwd_cuda`) computes dq, dk and dv; its plain
+versions are :func:`flash_attention_lse_plain` and
+:func:`flash_attention_bwd_plain`.  ``ops.FlashAttention`` binds the two
+kernels as one autograd function.
+
 Causal alignment is top-left: query i sees keys <= i whatever T is.
 """
 from __future__ import annotations
@@ -32,7 +40,13 @@ MAX_ROWS = 64                  # csrc kRows: g * block_q per block
 MAX_HEAD_DIM = 256             # SIMT: 16 float4 quads a lane; wgmma: 4 chunks
 WGMMA_WIDTHS = (64, 128, 256)  # padded head widths of the wgmma variant
 MAX_Q_TILES = 65535            # wgmma: q tiles run along grid.y
+MAX_BWD_DIM = 128              # csrc/flash_attention_bwd.cu kMaxDim
 _VARIANTS = {torch.bfloat16: "wgmma", torch.float32: "simt"}
+
+
+def _scale_of(q, scale: Optional[float]) -> float:
+    """The query scale: ``scale``, or 1 / sqrt(hd)."""
+    return scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True,
@@ -44,11 +58,61 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
     upcast (as the kernel, and the TPU kernel, do), then the
     materialising oracle ``ref.flash_attention_ref``.  Returns
     (B, S, H, vd) in q.dtype."""
-    scale_ = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
-    out = ref.flash_attention_ref(q.float() * scale_, k.float(), v.float(),
-                                  causal=causal, window=window, chunk=chunk,
-                                  logit_cap=logit_cap, scale=1.0)
+    out = ref.flash_attention_ref(q.float() * _scale_of(q, scale), k.float(),
+                                  v.float(), causal=causal, window=window,
+                                  chunk=chunk, logit_cap=logit_cap, scale=1.0)
     return out.to(q.dtype)
+
+
+def flash_attention_lse_plain(q, k, *, causal: bool = True,
+                              window: Optional[int] = None,
+                              chunk: Optional[int] = None,
+                              logit_cap: Optional[float] = None,
+                              scale: Optional[float] = None) -> torch.Tensor:
+    """Each row's log-sum-exp of its visible (scaled, capped) scores, the
+    scores of :func:`flash_attention_plain` (q scaled in fp32 after the
+    upcast): (B, H, S) fp32, what the kernels write with ``lse=True``."""
+    b, s, h, _ = q.shape
+    sc = ref.flash_scores(q.float() * _scale_of(q, scale), k.float(),
+                          causal=causal, window=window, chunk=chunk,
+                          logit_cap=logit_cap, scale=1.0)
+    return torch.logsumexp(sc, dim=-1).reshape(b, h, s)
+
+
+def flash_attention_bwd_plain(q, k, v, out, lse, dout, *, causal: bool = True,
+                              window: Optional[int] = None,
+                              chunk: Optional[int] = None,
+                              logit_cap: Optional[float] = None,
+                              scale: Optional[float] = None):
+    """Plain PyTorch version of the backward kernel: from q, k, v, the
+    forward's ``out`` and row log-sum-exp ``lse`` (B, H, S) and ``dout``,
+    with P recomputed from ``lse``, D = rowsum(dout * out) and dS =
+    P (dP - D) (times 1 - tanh^2 under the cap), returns (dq, dk, dv)
+    in fp32; dk and dv are summed over each KV head's query heads."""
+    b, s, h, hd = q.shape
+    t, kk, vd = k.shape[1], k.shape[2], v.shape[-1]
+    g = h // kk
+    sc_ = _scale_of(q, scale)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    x = torch.einsum("bskgd,btkd->bkgst", (qf * sc_).reshape(b, s, kk, g, hd),
+                     kf)
+    dy = 1.0
+    if logit_cap is not None:
+        th = torch.tanh(x / logit_cap)
+        x, dy = th * logit_cap, 1.0 - th * th
+    mask = ref.flash_mask(s, t, causal=causal, window=window, chunk=chunk,
+                          device=q.device)
+    p = torch.where(mask, torch.exp(x - lse.float().reshape(b, kk, g, s, 1)),
+                    0.0)
+    do = dout.float().reshape(b, s, kk, g, vd)
+    dp = torch.einsum("bskgv,btkv->bkgst", do, vf)
+    delta = (do * out.float().reshape(b, s, kk, g, vd)).sum(-1)
+    ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None]) * dy
+    dq = torch.einsum("bkgst,btkd->bskgd", ds, kf).reshape(b, s, h, hd) * sc_
+    dk = torch.einsum("bkgst,bskgd->btkd", ds,
+                      qf.reshape(b, s, kk, g, hd)) * sc_
+    dv = torch.einsum("bkgst,bskgv->btkv", p, do)
+    return dq, dk, dv
 
 
 def block_q_for(group: int, seq_len: int) -> int:
@@ -160,7 +224,7 @@ def _launcher(variant: str):
         else:
             fn = build.load("flash_attention").flash_attention_launch
             ints = 8        # batch .. g, hd, vd, block_q
-        fn.argtypes = [vp] * 4 + [ci] * ints + [cf, cf, ci, ci, ci, vp]
+        fn.argtypes = [vp] * 5 + [ci] * ints + [cf, cf, ci, ci, ci, vp]
         fn.restype = ci
         _launchers[variant] = fn
     return fn
@@ -189,12 +253,14 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
                          chunk: Optional[int] = None,
                          logit_cap: Optional[float] = None,
                          scale: Optional[float] = None,
-                         counts: Optional[Dict[str, int]] = None
-                         ) -> torch.Tensor:
+                         counts: Optional[Dict[str, int]] = None,
+                         lse: bool = False):
     """Launch the variant :func:`flash_plan` picks on q's current CUDA
     stream.  Where ``counts`` is given (the dispatcher's
     ``ops.launches``), a launch adds one to ``flash_attention`` and one
-    to ``flash_attention_<variant>`` of the variant it launched.
+    to ``flash_attention_<variant>`` of the variant it launched.  With
+    ``lse`` the kernel also writes each row's log-sum-exp, (B, H, S)
+    fp32, and the call returns (out, lse) — the backward's input.
 
     q (B, S, H, hd); k (B, T, K, hd); v (B, T, K, vd); contiguous, one
     dtype (bfloat16: the wgmma variant, hd and vd multiples of 8, 16-byte
@@ -219,14 +285,17 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
     b, s, h, hd = q.shape
     t, kk, vd = k.shape[1], k.shape[2], v.shape[-1]
     out = torch.empty((b, s, h, vd), dtype=q.dtype, device=dev)
+    row_lse = (torch.empty((b, h, s), dtype=torch.float32, device=dev)
+               if lse else None)
     if out.numel() == 0:
-        return out
+        return (out, row_lse) if lse else out
     tiling = ((p.width, p.block_q, int(p.longest_first))
               if p.variant == "wgmma" else (p.block_q,))
     rc = _launcher(p.variant)(
-        *ptrs, out.data_ptr(), b, s, t, kk, p.group, hd, vd, *tiling,
-        scale if scale is not None else 1.0 / math.sqrt(hd),
-        logit_cap or 0.0, int(causal), window or 0, chunk or 0,
+        *ptrs, out.data_ptr(), 0 if row_lse is None else row_lse.data_ptr(),
+        b, s, t, kk, p.group, hd, vd, *tiling,
+        _scale_of(q, scale), logit_cap or 0.0, int(causal), window or 0,
+        chunk or 0,
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel ({p.variant}) launch "
@@ -235,4 +304,86 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
     if counts is not None:
         counts["flash_attention"] += 1
         counts["flash_attention_" + p.variant] += 1
-    return out
+    return (out, row_lse) if lse else out
+
+
+@functools.lru_cache(maxsize=256)
+def flash_bwd_plan(q_shape, k_shape, v_shape, dtype, *, causal: bool = True,
+                   window: Optional[int] = None,
+                   chunk: Optional[int] = None) -> None:
+    """Refuse (ValueError) what the backward kernel does not take: all
+    that :func:`flash_plan` refuses, and S != T, hd or vd above 128 or
+    not a multiple of 8."""
+    flash_plan(q_shape, k_shape, v_shape, dtype, causal=causal,
+               window=window, chunk=chunk)
+    s, hd, t, vd = q_shape[1], q_shape[3], k_shape[1], v_shape[3]
+    if s != t:
+        _refuse(f"backward needs S == T, got S {s}, T {t}")
+    for name, d in (("hd", hd), ("vd", vd)):
+        if d > MAX_BWD_DIM or d % 8:
+            _refuse(f"backward takes {name} <= {MAX_BWD_DIM} and a multiple "
+                    f"of 8, got {d}")
+
+
+def flash_attention_bwd_cuda(q, k, v, out, lse, dout, *, causal: bool = True,
+                             window: Optional[int] = None,
+                             chunk: Optional[int] = None,
+                             logit_cap: Optional[float] = None,
+                             scale: Optional[float] = None,
+                             counts: Optional[Dict[str, int]] = None):
+    """Launch K3's backward (``csrc/flash_attention_bwd.cu``) on q's
+    current CUDA stream: (dq, dk, dv) in q's dtype from the forward's
+    inputs, its ``out`` and ``lse`` (B, H, S) fp32 (``lse=True``) and
+    ``dout``.  All of q, k, v, out and dout share one dtype (bfloat16
+    or float32) and are contiguous.  Shapes are checked first
+    (:func:`flash_bwd_plan`, ValueError), then the device; nothing is
+    computed on the CPU.  Where ``counts`` is given, a call adds one to
+    ``flash_attention_bwd``."""
+    b, s, h, hd = q.shape
+    flash_bwd_plan(tuple(q.shape), tuple(k.shape), tuple(v.shape), q.dtype,
+                   causal=causal, window=window, chunk=chunk)
+    kk, vd = k.shape[2], v.shape[-1]
+    for name, x in (("out", out), ("dout", dout)):
+        if tuple(x.shape) != (b, s, h, vd) or x.dtype != q.dtype:
+            _refuse(f"{name} {tuple(x.shape)} {x.dtype}, want "
+                    f"{(b, s, h, vd)} {q.dtype}")
+    if tuple(lse.shape) != (b, h, s) or lse.dtype != torch.float32:
+        _refuse(f"lse {tuple(lse.shape)} {lse.dtype}, want {(b, h, s)} "
+                f"float32")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        _refuse(f"dtypes {q.dtype}/{k.dtype}/{v.dtype} differ")
+    tensors = (q, k, v, out, lse, dout)
+    dev = q.device
+    if dev.type != "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("flash_attention kernel: CUDA is not available")
+    if any(x.device != dev for x in tensors) or dev.type != "cuda":
+        _refuse("q, k, v, out, lse, dout must be on one CUDA device")
+    if not all(x.is_contiguous() for x in tensors):
+        _refuse("backward operands must be contiguous")
+    if any(x.data_ptr() % 16 for x in tensors):
+        _refuse("backward operands must be 16-byte aligned (tile copies)")
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=dev)
+    rc = _bwd_launcher()(
+        *(x.data_ptr() for x in (q, k, v, out, lse, dout, delta, dq, dk, dv)),
+        b, s, kk, h // kk, hd, vd, _scale_of(q, scale), logit_cap or 0.0,
+        int(causal), window or 0, chunk or 0, int(q.dtype == torch.bfloat16),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention backward launch failed: CUDA "
+                           f"error {rc}")
+    if counts is not None:
+        counts["flash_attention_bwd"] += 1
+    return dq, dk, dv
+
+
+def _bwd_launcher():
+    """The backward library's C entry point, built at first use."""
+    fn = _launchers.get("bwd")
+    if fn is None:
+        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn = build.load("flash_attention_bwd").flash_attention_bwd_launch
+        fn.argtypes = [vp] * 10 + [ci] * 6 + [cf, cf] + [ci] * 4 + [vp]
+        fn.restype = ci
+        _launchers["bwd"] = fn
+    return fn

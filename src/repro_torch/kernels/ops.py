@@ -14,7 +14,9 @@ where it is not the plain one: ``paged_attention_int8`` (int8 pages and
 their scales) and ``paged_attention_latent`` (absorbed MLA: V read as
 the leading ``v_dim`` features of the K pages themselves).  K1 and K3
 also count a launch that masks by a sliding window (a ``swa`` layer's)
-under ``paged_attention_window`` / ``flash_attention_window``.  K2's two
+under ``paged_attention_window`` / ``flash_attention_window``.  K3's
+backward counts one ``flash_attention_bwd`` a backward call (its
+forward, K3 with row log-sum-exps, counts as a K3 launch).  K2's two
 forms both count under ``mux_score``.  A call made while its thread
 captures a CUDA graph launches nothing: inside :func:`tally_launches`
 it adds to that capture's tally instead, and each replay of the graph
@@ -27,8 +29,11 @@ import contextlib
 import threading
 from typing import Dict, Iterator, Optional
 
+import torch
+
 from repro_torch.kernels import ref
-from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+                                                 flash_attention_cuda)
 from repro_torch.kernels.mux_score import mux_head_cuda, mux_score_cuda
 from repro_torch.kernels.paged_attention import (paged_attention_cuda,
                                                  paged_attention_plain)
@@ -39,7 +44,8 @@ launches: Dict[str, int] = {"paged_attention": 0, "paged_attention_int8": 0,
                              "paged_attention_window": 0, "mux_score": 0,
                              "flash_attention": 0, "flash_attention_wgmma": 0,
                              "flash_attention_simt": 0,
-                             "flash_attention_window": 0, "selective_scan": 0}
+                             "flash_attention_window": 0,
+                             "flash_attention_bwd": 0, "selective_scan": 0}
 
 
 _capture = threading.local()
@@ -76,6 +82,35 @@ def add_launches(tally: Dict[str, int]) -> None:
         launches[name] += n
 
 
+class FlashAttention(torch.autograd.Function):
+    """K3 under autograd on the card: the forward launches K3 with row
+    log-sum-exps and saves q, k, v, out and lse; the backward launches
+    K3's backward kernel.  Both count in the dispatcher's counters the
+    forward was given (under a non-reentrant checkpoint the forward runs
+    again, and counts again, inside the backward pass)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kw, counts):
+        out, lse = flash_attention_cuda(q, k, v, counts=counts, lse=True,
+                                        **kw)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.kw, ctx.counts = kw, counts
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd_cuda(q, k, v, out, lse,
+                                              dout.contiguous(),
+                                              counts=ctx.counts, **ctx.kw)
+        return dq, dk, dv, None, None
+
+
+def _needs_grad(*xs) -> bool:
+    return torch.is_grad_enabled() and any(
+        x is not None and x.requires_grad for x in xs)
+
+
 def attention(q, k, v, *, causal: bool = True,
               window: Optional[int] = None, chunk: Optional[int] = None,
               logit_cap: Optional[float] = None,
@@ -83,19 +118,25 @@ def attention(q, k, v, *, causal: bool = True,
     """Whole-prompt attention.  q (B, S, H, hd); k/v (B, T, K, hd|vd);
     causal alignment top-left.  A CPU tensor gets the model's
     ``blocked_attention`` (what ``repro.kernels.ops.attention`` runs off
-    the TPU), a CUDA tensor the flash-attention kernel's variant for
-    its dtype (bf16: wgmma, fp32: SIMT), which counts its launch in
-    ``launches``.  Returns (B, S, H, vd) in q.dtype."""
+    the TPU; autograd differentiates it, as JAX does the reference's), a
+    CUDA tensor the flash-attention kernel's variant for its dtype
+    (bf16: wgmma, fp32: SIMT), which counts its launch in ``launches``;
+    where a gradient is needed, through :class:`FlashAttention`, whose
+    backward is K3's backward kernel.  Returns (B, S, H, vd) in
+    q.dtype."""
     if q.device.type == "cpu":
         from repro_torch.models.attention import blocked_attention
         return blocked_attention(q, k, v, causal=causal, window=window,
                                  chunk=chunk, scale=scale,
                                  logit_cap=logit_cap)
     counts = _counts()
-    out = flash_attention_cuda(q.contiguous(), k.contiguous(),
-                               v.contiguous(), causal=causal, window=window,
-                               chunk=chunk, logit_cap=logit_cap, scale=scale,
-                               counts=counts)
+    kw = dict(causal=causal, window=window, chunk=chunk, logit_cap=logit_cap,
+              scale=scale)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if _needs_grad(q, k, v):
+        out = FlashAttention.apply(q, k, v, kw, counts)
+    else:
+        out = flash_attention_cuda(q, k, v, counts=counts, **kw)
     if window is not None:
         counts["flash_attention_window"] += 1
     return out
@@ -139,9 +180,15 @@ def selective_scan(x, dt, b_mat, c_mat, a_mat, d_vec, h0=None):
     """Mamba-1 scan from start state ``h0`` (zeros when None).
     x/dt: (B, S, d_in); b_mat/c_mat: (B, S, n); a_mat: (d_in, n);
     d_vec: (d_in,).  Returns (y (B, S, d_in) fp32 including D * x,
-    h_final (B, d_in, n) fp32)."""
+    h_final (B, d_in, n) fp32).  On the CPU autograd differentiates the
+    plain version; K4 has no backward yet, so a non-CPU call that needs
+    a gradient raises instead of returning a detached result."""
     if x.device.type == "cpu":
         return ref.selective_scan_ref(x, dt, b_mat, c_mat, a_mat, d_vec, h0)
+    if _needs_grad(x, dt, b_mat, c_mat, a_mat, d_vec, h0):
+        raise NotImplementedError(
+            "selective_scan on the card has no backward: Mamba training on "
+            "the card waits for K4's gradient (ROADMAP.md, queue 1)")
     out = selective_scan_cuda(x.contiguous(), dt, b_mat, c_mat, a_mat, d_vec,
                               h0)
     _counts()["selective_scan"] += 1

@@ -19,6 +19,44 @@ import torch
 NEG_INF = -1e30
 
 
+def flash_mask(s: int, t: int, *, causal: bool, window: Optional[int],
+               chunk: Optional[int], device=None) -> torch.Tensor:
+    """(S, T) bool: which keys each query sees (top-left causal, the
+    window kv > q - window, the chunk floor kv >= (q // chunk) * chunk)."""
+    q_pos = torch.arange(s, device=device)[:, None]
+    kv_pos = torch.arange(t, device=device)[None, :]
+    mask = torch.ones((s, t), dtype=torch.bool, device=device)
+    if causal:
+        mask &= kv_pos <= q_pos
+    if window is not None:
+        mask &= kv_pos > q_pos - window
+    if chunk is not None:
+        floor = torch.div(q_pos, chunk, rounding_mode="floor") * chunk
+        mask &= kv_pos >= floor
+    return mask
+
+
+def flash_scores(q, k, *, causal: bool = True, window: Optional[int] = None,
+                 chunk: Optional[int] = None,
+                 logit_cap: Optional[float] = None,
+                 scale: Optional[float] = None) -> torch.Tensor:
+    """The fp32 scores (B, K, g, S, T) of q (B, S, H, hd) against k
+    (B, T, K, hd) — q scaled in its own dtype, then the tanh cap — with
+    masked entries at ``NEG_INF``."""
+    b, s, h, hd = q.shape
+    t, kk = k.shape[1], k.shape[2]
+    g = h // kk
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    qr = (q * scale).reshape(b, s, kk, g, hd)
+    sc = torch.einsum("bskgd,btkd->bkgst", qr.float(), k.float())
+    if logit_cap is not None:
+        sc = torch.tanh(sc / logit_cap) * logit_cap
+    mask = flash_mask(s, t, causal=causal, window=window, chunk=chunk,
+                      device=q.device)
+    return torch.where(mask[None, None, None], sc,
+                       torch.full_like(sc, NEG_INF))
+
+
 def flash_attention_ref(q, k, v, *, causal: bool = True,
                         window: Optional[int] = None,
                         chunk: Optional[int] = None,
@@ -31,25 +69,9 @@ def flash_attention_ref(q, k, v, *, causal: bool = True,
     own dtype, the scores and softmax are fp32.
     Returns (B, S, H, vd) in q.dtype.
     """
-    b, s, h, hd = q.shape
-    t, kk = k.shape[1], k.shape[2]
-    g = h // kk
-    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
-    qr = (q * scale).reshape(b, s, kk, g, hd)
-    sc = torch.einsum("bskgd,btkd->bkgst", qr.float(), k.float())
-    if logit_cap is not None:
-        sc = torch.tanh(sc / logit_cap) * logit_cap
-    q_pos = torch.arange(s, device=q.device)[:, None]
-    kv_pos = torch.arange(t, device=q.device)[None, :]
-    mask = torch.ones((s, t), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= kv_pos <= q_pos
-    if window is not None:
-        mask &= kv_pos > q_pos - window
-    if chunk is not None:
-        floor = torch.div(q_pos, chunk, rounding_mode="floor") * chunk
-        mask &= kv_pos >= floor
-    sc = torch.where(mask[None, None, None], sc, torch.full_like(sc, NEG_INF))
+    b, s, h, _ = q.shape
+    sc = flash_scores(q, k, causal=causal, window=window, chunk=chunk,
+                      logit_cap=logit_cap, scale=scale)
     p = torch.softmax(sc, dim=-1)
     out = torch.einsum("bkgst,btkv->bskgv", p, v.float())
     return out.reshape(b, s, h, v.shape[-1]).to(q.dtype)

@@ -3,11 +3,14 @@
 Port of ``repro.models.mamba``.  Differences from the JAX package, by
 design:
 
-* The prefill / train scan goes through ``kernels.ops.selective_scan``:
-  the hand-written CUDA kernel (K4) for CUDA tensors, its plain
-  sequential version for CPU tensors.  The JAX package's chunked
-  associative scan is not ported, so no padding to a chunk multiple is
-  needed; in fp32 the two agree to rounding, not bitwise.
+* The prefill scan goes through ``kernels.ops.selective_scan``: the
+  hand-written CUDA kernel (K4) for CUDA tensors, its plain sequential
+  version for CPU tensors, which autograd differentiates in training.
+  K4 has no backward yet, so on the card a scan that needs a gradient
+  raises ``NotImplementedError``: Mamba trains on the CPU only.  The
+  JAX package's chunked associative scan is not ported, so no padding
+  to a chunk multiple is needed; in fp32 the two agree to rounding, not
+  bitwise.
 * Caches are written **in place**: ``mamba_forward`` / ``mamba_decode``
   copy the new conv tail and SSM state into ``cache`` (the group's view
   of the stacked cache) and also return it, so call sites read as in the

@@ -22,6 +22,9 @@ and indexes group g as a view.  Caches are updated in place (see
 
 Entry points:
   * ``forward``        (train / prefill / decode)
+  * ``lm_loss``        (next-token cross-entropy + the MoE aux loss, the
+    training objective; each pattern group checkpointed under
+    ``remat``)
   * ``prefill``        (a prompt, writing fresh or reset ring / SSM
     caches)
   * ``prefill_paged``  (a prompt, or a shared-prefix tail, into pages)
@@ -34,9 +37,10 @@ Entry points:
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.device import DeviceLike, generator_on, resolve_device
@@ -324,9 +328,9 @@ def _mixer_forward(p: Params, spec: LayerSpec, cfg: ModelConfig, x, *,
 
 
 def _block_forward(p: Params, spec: LayerSpec, cfg: ModelConfig, h, **kw):
-    """One transformer block (pre-norm, optional post-norms).  An MoE
-    MLP dispatches dropless in decode and groups tokens only in train;
-    its aux loss is dropped here, as the JAX serving paths drop it."""
+    """One transformer block (pre-norm, optional post-norms).  Returns
+    (h, aux): an MoE MLP's load-balance loss (dispatch dropless in
+    decode, tokens grouped only in train), else None."""
     out = _mixer_forward(p, spec, cfg,
                          apply_norm(p["norm1"], h, cfg.norm, cfg.norm_eps),
                          **kw)
@@ -335,11 +339,12 @@ def _block_forward(p: Params, spec: LayerSpec, cfg: ModelConfig, h, **kw):
     if cfg.residual_scale is not None:
         out = out * cfg.residual_scale
     h = h + out
+    aux = None
     if spec.mlp != "none":
         y = apply_norm(p["norm2"], h, cfg.norm, cfg.norm_eps)
         if spec.mlp == "moe":
             mode = kw["mode"]
-            y, _ = moe_mod.moe_ffn(
+            y, aux = moe_mod.moe_ffn(
                 p["moe"], y, num_experts=cfg.num_experts,
                 top_k=cfg.num_experts_per_tok, router_act=cfg.router_act,
                 capacity_factor=cfg.capacity_factor, act=cfg.act,
@@ -352,7 +357,7 @@ def _block_forward(p: Params, spec: LayerSpec, cfg: ModelConfig, h, **kw):
         if cfg.residual_scale is not None:
             y = y * cfg.residual_scale
         h = h + y
-    return h
+    return h, aux
 
 
 def embed_tokens(params: Params, cfg: ModelConfig, tokens):
@@ -389,6 +394,23 @@ def forward(params: Params, cfg: ModelConfig, tokens, *, mode: str = "train",
     operand (``attention.build_decode_prefetch``), shared by every
     layer.  Returns (hidden (B, S, D) post-final-norm, caches).
     """
+    h, caches, _ = _forward(params, cfg, tokens, mode=mode, caches=caches,
+                            pos=pos, block_tables=block_tables,
+                            q_offset=q_offset, insert_from=insert_from,
+                            prefetch=prefetch)
+    return h, caches
+
+
+def _forward(params: Params, cfg: ModelConfig, tokens, *, mode: str,
+             caches=None, pos=None, block_tables=None, q_offset=None,
+             insert_from=None, prefetch=None):
+    """``forward`` that also returns, in train mode, the MoE aux loss
+    summed over the layers (fp32, 0 without MoE layers; None in the
+    other modes): (h, caches, aux).  In train mode under ``cfg.remat``
+    "full" / "full_inner" each pattern group runs under a non-reentrant
+    checkpoint, as the reference's ``jax.checkpoint`` per group (the
+    port's whole-prompt attention keeps no per-block state, so
+    "full_inner" checkpoints as "full")."""
     _check_supported(cfg)
     dev = params["embed"].device
     positions = None
@@ -401,16 +423,75 @@ def forward(params: Params, cfg: ModelConfig, tokens, *, mode: str = "train",
     else:
         pos = torch.as_tensor(pos, device=dev).long().reshape(-1)
     h = embed_tokens(params, cfg, tokens)
+    train = mode == "train"
+    # the aux loss is summed in train mode only: a serving step (a CUDA
+    # graph on the card) launches nothing for it
+    aux = torch.zeros((), dtype=torch.float32, device=dev) if train else None
+    remat = train and cfg.remat in ("full", "full_inner")
     for g in range(cfg.num_groups):
-        for i, spec in enumerate(cfg.pattern):
-            p = _group(params["blocks"][f"p{i}"], g)
-            cache = None if caches is None else _group(caches[f"p{i}"], g)
-            h = _block_forward(p, spec, cfg, h, positions=positions,
-                               mode=mode, pos=pos, cache=cache,
-                               block_tables=block_tables, q_offset=q_offset,
-                               insert_from=insert_from, prefetch=prefetch)
+        def group(hh, g=g):
+            aux_g = None
+            for i, spec in enumerate(cfg.pattern):
+                p = _group(params["blocks"][f"p{i}"], g)
+                cache = None if caches is None else _group(caches[f"p{i}"], g)
+                hh, a = _block_forward(p, spec, cfg, hh, positions=positions,
+                                       mode=mode, pos=pos, cache=cache,
+                                       block_tables=block_tables,
+                                       q_offset=q_offset,
+                                       insert_from=insert_from,
+                                       prefetch=prefetch)
+                if train and a is not None:
+                    aux_g = a if aux_g is None else aux_g + a
+            return hh, aux_g
+        h, aux_g = (checkpoint(group, h, use_reentrant=False) if remat
+                    else group(h))
+        if aux_g is not None:
+            aux = aux + aux_g
     h = apply_norm(params["final_norm"], h, cfg.norm, cfg.norm_eps)
-    return h, caches
+    return h, caches, aux
+
+
+# ===========================================================================
+# Loss
+# ===========================================================================
+
+def _ce(logits, labels):
+    """fp32 cross-entropy; logits (..., V), labels (...) int."""
+    logits = logits.float()
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return torch.logsumexp(logits, dim=-1) - gold
+
+
+def lm_loss(params: Params, cfg: ModelConfig, batch: Dict[str, Any]
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token cross-entropy (+ the MoE aux loss) of ``batch``
+    {"tokens", "labels"} (B, S): ``forward`` in train mode, then the
+    logits in fp32, whole or, under ``cfg.logits_chunk``, in chunks of
+    that many positions, each chunk's unembedding and loss
+    checkpointed so only one chunk's logits are alive.  Returns (loss +
+    aux_loss_coef * aux / n_moe, {"ce", "aux"})."""
+    tokens, labels = batch["tokens"], batch["labels"]
+    h, _, aux = _forward(params, cfg, tokens, mode="train")
+    if cfg.logits_chunk:
+        c = cfg.logits_chunk
+        s = h.shape[1]
+        if s % c:
+            raise ValueError(f"sequence {s} is not a multiple of "
+                             f"logits_chunk {c}")
+
+        def chunk_loss(hh, ll):
+            return _ce(unembed(params, cfg, hh), ll).sum()
+        total = torch.zeros((), dtype=torch.float32, device=h.device)
+        for i in range(0, s, c):
+            total = total + checkpoint(chunk_loss, h[:, i:i + c],
+                                       labels[:, i:i + c],
+                                       use_reentrant=False)
+        loss = total / labels.numel()
+    else:
+        loss = _ce(unembed(params, cfg, h), labels).mean()
+    n_moe = cfg.num_groups * sum(spec.mlp == "moe" for spec in cfg.pattern)
+    return loss + cfg.aux_loss_coef * aux / max(n_moe, 1), {"ce": loss,
+                                                            "aux": aux}
 
 
 def _group(tree: Params, g: int) -> Params:
